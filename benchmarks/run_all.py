@@ -1,12 +1,14 @@
 #!/usr/bin/env python
-"""Full benchmark suite: every sample matrix x {CSR, TJDS} x {xla, pallas}
+"""Full benchmark suite: every sample matrix x {CSR, TJDS} x kernels,
 plus the synthetic 10M-nnz scaling input (BASELINE.json configs).
 
-Emits one JSON line per (matrix, algorithm, kernel) with timing and
-roofline metrics; mirrors the reference's benchmark campaign
-(output-test/ reports) with the TPU metrics the reference lacks.
+The sample matrices are the generated stand-ins of the reference's
+sample data (``utils.synth.sample_matrix``: same shape, nnz and type
+code). Emits one JSON line per (matrix, algorithm, kernel) with timing
+and roofline metrics, each naming the device it ran on.
 
 Usage: python benchmarks/run_all.py [--quick] [--out results.jsonl]
+       [--kernels xla,cusparse,native] [--matrices ibm32,memplus]
 """
 
 from __future__ import annotations
@@ -18,25 +20,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-SAMPLES = {
-    "ibm32": "/root/reference/sample-data/ibm32.mtx",
-    "curtis54": "/root/reference/sample-data/curtis54.mtx",
-    "pdp08-pg4": "/root/reference/sample-data/pdp08-pg4.mtx",
-    "memplus": "/root/reference/sample-data/memplus.mtx",
-    "pwt": "/root/reference/sample-data/pwt.mtx",
-}
-
-# Reference avg iteration times (ms) from BASELINE.md (1000-iter runs).
-REFERENCE_MS = {
-    ("ibm32", "CSR"): 0.0004319,
-    ("ibm32", "TJDS"): 0.0007779,
-    ("curtis54", "CSR"): 0.0009249,
-    ("curtis54", "TJDS"): 0.0014113,
-    ("memplus", "CSR"): 0.387638,
-    ("memplus", "TJDS"): 0.549908,
-    ("pwt", "CSR"): 0.569281,
-    ("pwt", "TJDS"): 1.1823,
-}
+SAMPLES = ["ibm32", "curtis54", "pdp08-pg4", "memplus", "pwt"]
 
 
 def main() -> int:
@@ -44,7 +28,7 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="small iteration counts")
     ap.add_argument("--out", default=None, help="also append JSONL here")
     ap.add_argument("--skip-synth", action="store_true")
-    ap.add_argument("--kernels", default="xla,pallas")
+    ap.add_argument("--kernels", default="xla,cusparse")
     ap.add_argument(
         "--matrices",
         default=None,
@@ -64,18 +48,12 @@ def main() -> int:
     )
     from smvp_toolkit_tpu.formats.csr import csr_encode
     from smvp_toolkit_tpu.formats.tjds import tjds_encode
-    from smvp_toolkit_tpu.io.mtx import read_mtx
-    from smvp_toolkit_tpu.ops import spmv_csr, spmv_tjds
-    from smvp_toolkit_tpu.ops.spmv_pallas import spmv_csr_pallas, spmv_tjds_pallas
-    from smvp_toolkit_tpu.utils.synth import synth_banded
+    from smvp_toolkit_tpu.ops import spmv_csr, spmv_csr_cusparse, spmv_tjds
+    from smvp_toolkit_tpu.utils.synth import sample_matrix, synth_banded
 
     device = jax.devices()[0]
     iters = 50 if args.quick else 200
     kernels = args.kernels.split(",")
-    if device.platform == "cpu" and "pallas" in kernels and args.kernels == "xla,pallas":
-        # Default kernel list on CPU: the Pallas interpreter is orders of
-        # magnitude slower than compiled mode — only run it when asked.
-        kernels = ["xla"]
     results = []
 
     def record(rec):
@@ -86,21 +64,16 @@ def main() -> int:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
-    wanted = args.matrices.split(",") if args.matrices else list(SAMPLES)
-    matrices = {}
-    for name, path in SAMPLES.items():
-        if name in wanted:
-            matrices[name] = read_mtx(path).pad(512)
+    wanted = args.matrices.split(",") if args.matrices else SAMPLES
+    matrices = {name: sample_matrix(name).pad(512) for name in wanted}
     if not args.skip_synth:
         matrices["synth-10M"] = synth_banded(
             1_000_000, nnz_per_row=10, bandwidth=256, seed=0
         ).pad(512)
         # goodwin.mtx (7320^2, 324784 nnz, strongly nonuniform rows) is
-        # stripped from the reference snapshot (.MISSING_LARGE_BLOBS);
-        # a power-law surrogate at its shape stands in for the
-        # BASELINE.json "jagged-diagonal pack with nonuniform row
-        # lengths" config. NOT comparable to the reference's goodwin
-        # timings — no vs_reference is emitted for it.
+        # not distributed either; a power-law matrix at its shape stands
+        # in for the BASELINE.json "jagged-diagonal pack with nonuniform
+        # row lengths" config.
         from smvp_toolkit_tpu.utils.synth import synth_powerlaw
 
         matrices["goodwin-surrogate"] = synth_powerlaw(
@@ -111,67 +84,6 @@ def main() -> int:
 
     from smvp_toolkit_tpu.formats.csr import csr_decode
     from smvp_toolkit_tpu.formats.tjds import tjds_decode
-
-    def sell_plan_of(fn, enc):
-        """The cached SELL plan behind a pallas wrapper (None if absent)."""
-        from smvp_toolkit_tpu.ops.spmv_pallas import _CACHE
-
-        hit = _CACHE.get(id(enc))
-        return hit[1].plan if hit is not None else None
-
-    def sell_op_of(enc):
-        """The cached SELL operator behind a pallas wrapper."""
-        from smvp_toolkit_tpu.ops.spmv_pallas import _CACHE
-
-        hit = _CACHE.get(id(enc))
-        return hit[1] if hit is not None else None
-
-    def gridfused_ms(enc, x, nnz):
-        """Grid-fused per-iteration ms on TPU (None off-TPU/unsupported).
-
-        The slope over iteration counts is the honest per-iteration
-        rate: per-CALL wall times carry the stack's dispatch floor
-        (~25 ms on the current runtime — divided by the iteration
-        count it masquerades as a per-iteration cost; PERFORMANCE.md
-        round-5 session 2), which the slope cancels exactly."""
-        if device.platform != "tpu":
-            return None
-        op = sell_op_of(enc)
-        if op is None:
-            return None
-        return gridfused_ms_op(op, x, nnz)
-
-    def gridfused_ms_op(op, x, nnz):
-        """3-point slope fit with a linearity (bend) gate — the 2-point
-        difference emitted garbage under chip contention (measured:
-        a 0.0 ms delta on synth-10M printing 2e12 Gnnz/s)."""
-        base_n = max(200, min(4000, int(2e8 / max(nnz, 1))))
-        try:
-            pts = [base_n, 2 * base_n, 4 * base_n]
-            times = []
-            for n in pts:
-                f = jax.jit(lambda xx, _n=n: op.bench_loop(xx, _n))
-                np.asarray(f(x))
-                samples = []
-                for _ in range(3):
-                    t0 = _time.perf_counter_ns()
-                    np.asarray(f(x))
-                    samples.append((_time.perf_counter_ns() - t0) / 1e6)
-                times.append(min(samples))
-            A = np.vstack([pts, np.ones(3)]).T
-            (slope, intercept), *_ = np.linalg.lstsq(
-                A, np.asarray(times), rcond=None
-            )
-            if slope <= 0:
-                return None
-            bend = (times[1] - (slope * pts[1] + intercept)) / max(
-                times[1], 1e-9
-            )
-            if abs(bend) > 0.15:
-                return None  # contention-bent fit — don't publish
-            return float(slope)
-        except Exception:
-            return None
 
     for name, coo in matrices.items():
         x = jnp.ones((coo.shape[1],), jnp.float32)
@@ -259,84 +171,18 @@ def main() -> int:
                 record({"matrix": name, "alg": "CISR", "op": "bench",
                         "error": str(e)[:200]})
 
-            # CISR performance path: the schedule replanned into the
-            # SELL layout (spmv_cisr_pallas) — the interleaving exists
-            # to feed parallel lanes (reference scheduler
-            # main-cli.c:542-612) and this is the TPU way to compute
-            # with it. The schedule-faithful row above stays as the
-            # capability/debug surface.
-            if "pallas" in kernels:
-                try:
-                    from smvp_toolkit_tpu.ops.spmv_pallas import (
-                        spmv_cisr_pallas,
-                    )
-
-                    y = np.asarray(
-                        spmv_cisr_pallas(cisr, x)
-                    ).astype(np.float64)
-                    err = float(np.abs(y - y_ref).max() / scale)
-                    if err > 1e-3:
-                        raise ValueError(f"wrong result ({err:.2e})")
-                    stats = bench_spmv_fused(
-                        spmv_cisr_pallas, cisr, x,
-                        iterations=iters, repeats=3,
-                    )
-                    rec = {
-                        "matrix": name, "alg": "CISR",
-                        "kernel": "pallas",
-                        "nnz": coo.nnz,
-                        "avg_ms": round(stats.avg_ms, 6),
-                        "gnnz_per_s": round(
-                            stats.nnz_per_s(coo.nnz) / 1e9, 3
-                        ),
-                        "rel_err": err,
-                        "device": device.device_kind,
-                    }
-                    gf_ms = gridfused_ms(cisr, x, coo.nnz)
-                    if gf_ms is not None:
-                        rec["gridfused_avg_ms"] = round(gf_ms, 6)
-                        rec["gridfused_gnnz_per_s"] = round(
-                            coo.nnz / gf_ms / 1e6, 3
-                        )
-                    record(rec)
-                except Exception as e:  # pragma: no cover
-                    record({"matrix": name, "alg": "CISR",
-                            "kernel": "pallas",
-                            "error": str(e)[:200]})
-
-        # SELL plan throughput (the Pallas performance path's encode;
-        # BASELINE.json "encode MB/s" applies to it too — the C++ planner
-        # pass makes the 10M-nnz config tractable).
-        try:
-            from smvp_toolkit_tpu.ops.sell_plan import build_sell_plan
-
-            t0 = _time.perf_counter()
-            plan = build_sell_plan(r, c, v, coo.shape)
-            dt = _time.perf_counter() - t0
-            record({
-                "matrix": name,
-                "alg": "SELL",
-                "op": "plan",
-                "encode_ms": round(dt * 1e3, 3),
-                "encode_mb_s": round(coo_bytes / dt / 1e6, 1),
-                "sublanes": plan.n_sublanes,
-                "window_tiles": plan.window_tiles,
-            })
-        except Exception as e:  # pragma: no cover
-            record({"matrix": name, "alg": "SELL", "op": "plan",
-                    "error": str(e)[:200]})
-
         encs = {
-            "CSR": (csr_encode(coo), spmv_csr, spmv_csr_pallas,
+            "CSR": (csr_encode(coo),
+                    {"xla": spmv_csr, "cusparse": spmv_csr_cusparse},
                     spmv_bytes_csr(coo.nnz, coo.shape[0])),
         }
         if name != "synth-10M":
             tj = tjds_encode(coo)
-            encs["TJDS"] = (tj, spmv_tjds, spmv_tjds_pallas,
+            encs["TJDS"] = (tj, {"xla": spmv_tjds},
                             spmv_bytes_tjds(coo.nnz, coo.shape[0],
                                             int(tj.num_diags)))
 
-        for alg, (enc, fn_xla, fn_pal, bytes_per) in encs.items():
+        for alg, (enc, fns, bytes_per) in encs.items():
             for kernel in kernels:
                 if kernel == "native":
                     try:
@@ -364,19 +210,17 @@ def main() -> int:
                     op(xn, iterations=iters)
                     dt_ms = (_t2.perf_counter() - t0) / iters * 1e3
                     nnzs = coo.nnz / (dt_ms * 1e-3)
-                    rec = {
+                    record({
                         "matrix": name, "alg": alg,
                         "kernel": f"native-{op.threads}t",
                         "nnz": coo.nnz, "avg_ms": round(dt_ms, 6),
                         "gnnz_per_s": round(nnzs / 1e9, 3),
                         "rel_err": err, "device": "cpu-native",
-                    }
-                    ref_ms = REFERENCE_MS.get((name, alg))
-                    if ref_ms:
-                        rec["vs_reference"] = round(ref_ms / dt_ms, 2)
-                    record(rec)
+                    })
                     continue
-                fn = fn_xla if kernel == "xla" else fn_pal
+                fn = fns.get(kernel)
+                if fn is None:
+                    continue  # no such route for this format
                 try:
                     y = np.asarray(fn(enc, x)).astype(np.float64)
                     err = float(np.abs(y - y_ref).max() / scale)
@@ -402,126 +246,12 @@ def main() -> int:
                         ),
                         "rel_err": err,
                         "device": device.device_kind,
+                        "platform": device.platform,
                     }
-                    if kernel == "pallas":
-                        # Honest roofline for the SELL kernel: padding
-                        # slots move real bytes, so the achieved-GB/s
-                        # against actual plan traffic is what compares to
-                        # the HBM speed of light.
-                        plan = sell_plan_of(fn, enc)
-                        if plan is not None:
-                            actual = plan.traffic_bytes()
-                            agbs = stats.gb_per_s(actual)
-                            rec["sell_occupancy"] = round(
-                                coo.nnz / plan.slots(), 4
-                            )
-                            rec["sell_gb_s"] = round(agbs, 2)
-                            rec["sell_roofline_frac"] = round(
-                                agbs / hbm_bandwidth_gbs(device), 5
-                            )
-                        gf_ms = gridfused_ms(enc, x, coo.nnz)
-                        if gf_ms is not None:
-                            rec["gridfused_avg_ms"] = round(gf_ms, 6)
-                            rec["gridfused_gnnz_per_s"] = round(
-                                coo.nnz / gf_ms / 1e6, 3
-                            )
-                            if ref_ms := REFERENCE_MS.get((name, alg)):
-                                rec["gridfused_vs_reference"] = round(
-                                    ref_ms / gf_ms, 2
-                                )
-                    ref_ms = REFERENCE_MS.get((name, alg))
-                    if ref_ms:
-                        rec["vs_reference"] = round(ref_ms / stats.avg_ms, 2)
                     record(rec)
                 except Exception as e:  # pragma: no cover
                     record({"matrix": name, "alg": alg, "kernel": kernel,
                             "error": str(e)[:200]})
-
-        # Co-clustered coordinates row (ops/cocluster.py): the joint
-        # row x column planner's occupancy gain on the grid-fused
-        # protocol, in permuted space (x scattered through col_map at
-        # upload — the SELL-C-sigma preprocessing contract). Large
-        # matrices only: the small samples are launch-bound.
-        if "pallas" in kernels and name in ("memplus", "pwt",
-                                            "synth-10M",
-                                            "goodwin-surrogate"):
-            try:
-                from smvp_toolkit_tpu.ops.spmv_pallas import (
-                    CoClusteredSellSpMV,
-                )
-
-                import ml_dtypes
-
-                t0 = _time.perf_counter()
-                # bf16 value mode: the bench.py headline's shipped
-                # default — one consistent benchmark surface.
-                op_cc = CoClusteredSellSpMV(
-                    coo, value_dtype=jnp.bfloat16
-                )
-                cc_plan_s = _time.perf_counter() - t0
-                res = op_cc.result
-                xp = np.zeros(res.shape_padded[1], dtype=np.float32)
-                xp[res.col_map] = np.ones(coo.shape[1], np.float32)
-                xp = jnp.asarray(xp)
-                y_ref16 = np.zeros(coo.shape[0])
-                np.add.at(
-                    y_ref16, r,
-                    v.astype(ml_dtypes.bfloat16).astype(np.float64),
-                )
-                scale16 = np.abs(y_ref16).max() + 1e-30
-                yp = np.asarray(op_cc.inner(xp)).astype(np.float64)
-                err = float(
-                    np.abs(yp[res.row_map] - y_ref16).max() / scale16
-                )
-                if err > 1e-3:
-                    raise ValueError(f"wrong result ({err:.2e})")
-                stats = bench_spmv_fused(
-                    lambda _m, xx: op_cc.inner(xx), coo, xp,
-                    iterations=iters, repeats=3,
-                )
-                plan = op_cc.inner.plan
-                nnzs = stats.nnz_per_s(coo.nnz)
-                gbs = stats.gb_per_s(spmv_bytes_csr(coo.nnz,
-                                                    coo.shape[0]))
-                agbs = stats.gb_per_s(plan.traffic_bytes())
-                rec = {
-                    "matrix": name, "alg": "CSR",
-                    "kernel": "pallas-cocluster",
-                    "nnz": coo.nnz,
-                    "avg_ms": round(stats.avg_ms, 6),
-                    "gnnz_per_s": round(nnzs / 1e9, 3),
-                    "eff_gb_s": round(gbs, 2),
-                    "roofline_frac": round(
-                        gbs / hbm_bandwidth_gbs(device), 5
-                    ),
-                    "sell_occupancy": round(
-                        coo.nnz / plan.slots(), 4
-                    ),
-                    "sell_gb_s": round(agbs, 2),
-                    "sell_roofline_frac": round(
-                        agbs / hbm_bandwidth_gbs(device), 5
-                    ),
-                    "chunk": int(plan.chunk),
-                    "cocluster_plan_s": round(cc_plan_s, 1),
-                    "rel_err": err,
-                    "device": device.device_kind,
-                }
-                if device.platform == "tpu":
-                    gf_ms = gridfused_ms_op(op_cc.inner, xp, coo.nnz)
-                    if gf_ms is not None:
-                        rec["gridfused_avg_ms"] = round(gf_ms, 6)
-                        rec["gridfused_gnnz_per_s"] = round(
-                            coo.nnz / gf_ms / 1e6, 3
-                        )
-                        if ref_ms := REFERENCE_MS.get((name, "CSR")):
-                            rec["gridfused_vs_reference"] = round(
-                                ref_ms / gf_ms, 2
-                            )
-                record(rec)
-            except Exception as e:  # pragma: no cover
-                record({"matrix": name, "alg": "CSR",
-                        "kernel": "pallas-cocluster",
-                        "error": str(e)[:200]})
 
         # Data-parallel row (BASELINE.json: "memplus row-block sharded",
         # "pwt + synth multi-host DP") whenever >1 device is visible

@@ -17,20 +17,18 @@ def main() -> int:
     rows = [json.loads(ln) for ln in f if ln.strip()]
 
     bench = [r for r in rows if "gnnz_per_s" in r and "error" not in r]
-    enc = [r for r in rows if r.get("op") in ("encode+decode", "plan")]
+    enc = [r for r in rows if r.get("op") == "encode+decode"]
     errs = [r for r in rows if "error" in r]
 
     if bench:
         print("## SpMV throughput\n")
-        print("| matrix | alg | kernel | Gnnz/s | GB/s | roofline | "
-              "vs ref | err |")
-        print("|---|---|---|---|---|---|---|---|")
+        print("| matrix | alg | kernel | Gnnz/s | GB/s | roofline | err |")
+        print("|---|---|---|---|---|---|---|")
         for r in bench:
             print(
                 f"| {r['matrix']} | {r['alg']} | {r['kernel']} "
                 f"| {r['gnnz_per_s']} | {r.get('eff_gb_s', '—')} "
-                f"| {r.get('sell_roofline_frac', r.get('roofline_frac', '—'))} "
-                f"| {r.get('vs_reference', '—')} "
+                f"| {r.get('roofline_frac', '—')} "
                 f"| {r.get('rel_err', 0):.1e} |"
             )
         print()

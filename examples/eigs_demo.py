@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Smallest eigenpairs of a 2-D Laplacian: LOBPCG + AMG + fused SpMM.
+"""Smallest eigenpairs of a 2-D Laplacian: LOBPCG + AMG + k-wide SpMM.
 
-The whole round-3 engine composing on one problem: the block
-eigensolver's SpMMs ride the fused SELL launch, the preconditioner is
-the smoothed-aggregation V-cycle, and the Ritz values land on the
+The block eigensolver's multiplies are k-wide SpMMs (gather +
+segment-sum), the preconditioner is the smoothed-aggregation V-cycle,
+and the Ritz values land on the
 analytic Dirichlet-Laplacian spectrum 4sin²(iπ/2(nx+1)) + 4sin²(jπ/2(nx+1)).
 """
 import os
@@ -19,7 +19,6 @@ import jax.numpy as jnp
 from smvp_toolkit_tpu import csr_encode
 from smvp_toolkit_tpu.formats.coo import COOMatrix
 from smvp_toolkit_tpu.models import amg_preconditioner, lobpcg
-from smvp_toolkit_tpu.ops.spmv_pallas import sell_op_csr
 
 NX, K, ITERS = 40, 4, 40
 
@@ -33,19 +32,16 @@ coo = COOMatrix.from_numpy(
 )
 csr = csr_encode(coo)
 
-op = sell_op_csr(csr)                      # fused SpMM operator
 m = amg_preconditioner(csr)                # V-cycle preconditioner
 X0 = jnp.asarray(
     np.random.RandomState(0).standard_normal((n, K)).astype(np.float32)
 )
-theta, X, res = lobpcg(
-    csr, X0, num_iters=ITERS, m=m, spmm=lambda _m, Z: op.matmat(Z)
-)
+theta, X, res = lobpcg(csr, X0, num_iters=ITERS, m=m)
 
 s = np.sin(np.arange(1, NX + 1) * np.pi / (2 * (NX + 1))) ** 2
 analytic = np.sort((4 * s[:, None] + 4 * s[None, :]).ravel())[:K]
 print(f"2-D Dirichlet Laplacian {NX}x{NX}, {K} smallest eigenvalues, "
-      f"{ITERS} LOBPCG iterations (AMG-preconditioned, fused SpMM):")
+      f"{ITERS} LOBPCG iterations (AMG-preconditioned):")
 for j, (th, an, r) in enumerate(
     zip(np.asarray(theta), analytic, np.asarray(res)[-1])
 ):

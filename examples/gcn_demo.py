@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Graph convolution on a reference matrix — SpMM + MXU end to end.
+"""Graph convolution on a sample matrix — SpMM + dense layers end to end.
 
-Treats ibm32's sparsity pattern as a graph, builds the Kipf-Welling
+Treats the ibm32 stand-in's sparsity pattern as a graph
+(``utils.synth.sample_matrix``), builds the Kipf-Welling
 normalized adjacency, and trains a 2-layer GCN to classify nodes by
 their row-degree parity (a toy label that needs neighborhood info).
 """
@@ -14,10 +15,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from smvp_toolkit_tpu import read_mtx
 from smvp_toolkit_tpu.models import gcn_init, gcn_norm, gcn_train_step
+from smvp_toolkit_tpu.utils.synth import sample_matrix
 
-coo = read_mtx("/root/reference/sample-data/ibm32.mtx")
+coo = sample_matrix("ibm32")
 n = coo.shape[0]
 s = gcn_norm(coo)
 
@@ -40,31 +41,3 @@ def train(p):
 
 params, losses = train(params)
 print(f"loss: {float(losses[0]):.3f} -> {float(losses[-1]):.3f}")
-
-# Same training on the Pallas performance path: the fused SpMM serves
-# all feature columns per kernel launch (value/index planes read once)
-# and differentiable_mat supplies the Aᵀ·G cotangent, so forward AND
-# backward aggregation run on the SELL kernel.
-from smvp_toolkit_tpu.ops.spmv_pallas import sell_op_csr
-
-op = sell_op_csr(s)  # SELL plan of the NORMALIZED operator
-f = op.differentiable_mat()
-params2 = gcn_init(jax.random.PRNGKey(0), [8, 16, 2])
-
-
-@jax.jit
-def train_pallas(p):
-    def body(p, _):
-        p, loss = gcn_train_step(
-            s, p, h, labels, mask, lr=0.1, spmm=lambda m, X: f(X)
-        )
-        return p, loss
-
-    return jax.lax.scan(body, p, None, length=100)
-
-
-params2, losses2 = train_pallas(params2)
-print(
-    f"loss (Pallas fused SpMM): {float(losses2[0]):.3f} -> "
-    f"{float(losses2[-1]):.3f}"
-)

@@ -5,10 +5,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from smvp_toolkit_tpu import read_mtx, csr_encode
+from smvp_toolkit_tpu import csr_encode
 from smvp_toolkit_tpu.models import pagerank
+from smvp_toolkit_tpu.utils.synth import sample_matrix
 
-coo = read_mtx("/root/reference/sample-data/ibm32.mtx").pad(128)
+coo = sample_matrix("ibm32").pad(128)
 # Column-normalize so the link matrix is column-stochastic.
 r, c, v = coo.to_numpy()
 colsum = np.bincount(c, weights=v, minlength=coo.shape[1])

@@ -12,8 +12,8 @@ degrades).
 The one-level ordering is not strictly monotone down the ladder:
 block-Jacobi (97) trails SSOR (47) on this stencil because a 5-point
 Poisson row couples two grid lines while each dense block spans only
-one. See PERFORMANCE.md for the measured table and ARCHITECTURE.md
-§5b for why the applies are shaped this way for TPU.
+one. ARCHITECTURE.md §5b says why the applies are shaped as fixed-shape
+device programs.
 """
 import os
 import sys

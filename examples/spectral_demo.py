@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Spectral graph partitioning with the block eigensolver.
 
-Treats a reference matrix's sparsity pattern as a graph, builds the
+Treats a sample matrix's sparsity pattern as a graph, builds the
 graph Laplacian L = D − W, and finds the Fiedler vector (the
 eigenvector of the second-smallest eigenvalue) with LOBPCG. The sign
 of the Fiedler vector bisects the graph; a good spectral cut crosses
@@ -16,11 +16,12 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from smvp_toolkit_tpu import csr_encode, read_mtx
+from smvp_toolkit_tpu import csr_encode
 from smvp_toolkit_tpu.formats.coo import COOMatrix
 from smvp_toolkit_tpu.models import amg_preconditioner, lobpcg
+from smvp_toolkit_tpu.utils.synth import sample_matrix
 
-coo = read_mtx("/root/reference/sample-data/memplus.mtx")
+coo = sample_matrix("memplus")
 n = coo.shape[0]
 r, c, _ = coo.to_numpy()
 

@@ -1,6 +1,6 @@
-"""smvp_toolkit_tpu — a TPU-native sparse-matrix codec + SpMV framework.
+"""smvp_toolkit_tpu — a sparse-matrix codec + SpMV framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 circletile/smvp-toolkit reference (an ANSI-C MatrixMarket → CSR/TJDS/CISR
 encoder + timed SpMV benchmark CLI; see reference main-cli.c):
 
@@ -9,8 +9,8 @@ encoder + timed SpMV benchmark CLI; see reference main-cli.c):
 * Compressed formats (``smvp_toolkit_tpu.formats``) — COO, CSR, TJDS, CISR
   as immutable pytree dataclasses with XLA encode **and decode** kernels
   (reference encodes only: main-cli.c:325-469, 734-1162, 473-729).
-* SpMV compute (``smvp_toolkit_tpu.ops``) — jitted XLA and Pallas-TPU
-  kernels replacing the C pointer-chasing hot loops
+* SpMV compute (``smvp_toolkit_tpu.ops``) — jitted XLA kernels (and
+  cuSPARSE on a GPU) replacing the C pointer-chasing hot loops
   (reference: main-cli.c:410-416, 1013-1020).
 * Data-parallel scaling (``smvp_toolkit_tpu.parallel``) — mesh + shard_map
   row-block / stripe sharding with ordered all-gather (no reference

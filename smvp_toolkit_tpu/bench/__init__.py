@@ -1,6 +1,6 @@
 """Benchmark harness: device-blocked timing, stats, roofline, reports.
 
-TPU re-design of the reference's timing layer (``_time_data_`` +
+Device re-design of the reference's timing layer (``_time_data_`` +
 ``clock_gettime(CLOCK_MONOTONIC_RAW)`` bracketing, main-cli.c:87-130,
 396-456): warmup iterations absorb XLA compilation, every timed iteration
 is bracketed by ``block_until_ready`` so device execution (not dispatch) is

@@ -1,4 +1,4 @@
-"""Profiler integration: capture XLA/TPU traces around benchmark runs.
+"""Profiler integration: capture XLA device traces around benchmark runs.
 
 The reference's only tracing is wall-clock pairs (SURVEY.md §5); here we
 expose ``jax.profiler`` traces (viewable in TensorBoard / Perfetto) as a

@@ -1,10 +1,10 @@
-"""Benchmark report writer — reference-compatible format plus TPU metrics.
+"""Benchmark report writer — reference-compatible format plus device metrics.
 
 Mirrors ``generateReportText`` (main-cli.c:246-320): same filename scheme
 ``smvp-toolbox_report_{ALG}_{unixtime}.txt`` (configurable prefix), same
 section order (version header, matrix path, nnz, five timing stats, full
 output vector one value per line in ``[`` ``]`` brackets, ``%g``
-formatting), with an optional TPU metrics block (nnz/s, effective GB/s,
+formatting), with an optional device metrics block (nnz/s, effective GB/s,
 roofline fraction, device) the reference lacks.
 
 Intentional fixes: files are opened in write mode (the reference appends,

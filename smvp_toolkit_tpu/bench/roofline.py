@@ -1,8 +1,8 @@
-"""Roofline accounting: bytes moved per SpMV and HBM speed-of-light.
+"""Roofline accounting: bytes moved per SpMV and device memory peaks.
 
-The north-star metric is fraction of per-chip HBM roofline
-(BASELINE.json: SpMV ≥ 80% of HBM speed-of-light). SpMV is memory-bound
-(≈0.1 FLOP/byte), so the roofline is bytes/iter ÷ HBM bandwidth.
+SpMV is memory-bound (≈0.1 FLOP/byte), so its roofline is bytes/iter ÷
+the device's memory bandwidth, and ``roofline_frac`` is the share of that
+bound a run reached.
 
 Byte accounting follows BASELINE.md footnote 1 (~20 B/nnz for f64 CSR):
 here parameterized by dtype — per nnz one value + one int32 index + one
@@ -12,40 +12,47 @@ x-gather; row_ptr/start_pos and the y write are amortized terms.
 from __future__ import annotations
 
 import jax
-import numpy as np
 
 __all__ = [
+    "UnknownDeviceError",
     "hbm_bandwidth_gbs",
     "spmv_bytes_csr",
     "spmv_bytes_tjds",
+    "spmv_bytes_cisr",
     "roofline_fraction",
 ]
 
-# Published per-chip HBM bandwidth (GB/s). Conservative public numbers.
-# device_kind strings use both marketing names ("v5e") and internal
-# forms ("TPU v5 lite"), so each generation needs both aliases.
-_HBM_GBS = {
-    "v4": 1228.0,
-    "v5e": 819.0,
-    "v5 lite": 819.0,
-    "v5p": 2765.0,
-    "v6e": 1640.0,
-    "v6 lite": 1640.0,
-    "cpu": 50.0,  # nominal DRAM figure for CPU-simulated runs
+# Published memory bandwidth (GB/s), keyed by the exact ``device_kind``
+# JAX reports, with the source of each figure. A device that is not here
+# is an error, never a default.
+PEAK_HBM_GBS = {
+    # NVIDIA H100 Tensor Core GPU data sheet, SXM5 part: 80 GB HBM3 at
+    # 3.35 TB/s.
+    "NVIDIA H100 80GB HBM3": 3350.0,
+    # Nominal DRAM figure for CPU-backend test runs only; no CPU number
+    # is reported as a device rate.
+    "cpu": 50.0,
 }
 
 
+class UnknownDeviceError(LookupError):
+    """The device has no entry in :data:`PEAK_HBM_GBS`."""
+
+
 def hbm_bandwidth_gbs(device=None) -> float:
-    """Best-effort HBM speed-of-light for the attached device."""
+    """Published memory bandwidth of ``device`` (default: the first)."""
     if device is None:
         device = jax.devices()[0]
-    kind = getattr(device, "device_kind", "").lower()
-    for key, bw in _HBM_GBS.items():
-        if key in kind:
-            return bw
+    kind = device.device_kind
+    if kind in PEAK_HBM_GBS:
+        return PEAK_HBM_GBS[kind]
     if device.platform == "cpu":
-        return _HBM_GBS["cpu"]
-    return _HBM_GBS["v5e"]
+        return PEAK_HBM_GBS["cpu"]
+    raise UnknownDeviceError(
+        f"no memory-bandwidth peak for device_kind {kind!r} "
+        f"(platform {device.platform}); add it to PEAK_HBM_GBS with "
+        "its source"
+    )
 
 
 def _isz() -> int:

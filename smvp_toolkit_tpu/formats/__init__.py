@@ -1,6 +1,6 @@
 """Sparse-matrix format data models + encode/decode codecs.
 
-TPU-native re-design of the reference's format structs
+Device re-design of the reference's format structs
 (``MMRawData``/``CSRData``/``TJDSData``/``TXTable``, main-cli.c:42-83):
 immutable pytree dataclasses with static padded shapes, encoded and decoded
 by jitted XLA programs instead of qsort + pointer loops.

@@ -8,7 +8,7 @@ the next unassigned row when its row is exhausted; exhausted slots emit
 zero padding. The packed ``.coe`` memory image interleaves value words with
 row-length words (packing spec per the reference comment main-cli.c:673-688).
 
-Re-design notes (this is a serialization format, not TPU compute —
+Re-design notes (this is a serialization format, not device compute —
 SURVEY.md §7 M7):
 
 * Host-side vectorized numpy scheduler (no C loops over slot groups).
@@ -20,8 +20,8 @@ SURVEY.md §7 M7):
   truncation of double values into 12 bits is inherent to the reference
   format and documented here.
 * Opt-in, parameterized; a decoder reconstructs (row, col, val-as-packed)
-  for round-trip testing. The scheduler tables also double as the lane
-  schedule for the Pallas interleaved SpMV kernel.
+  for round-trip testing. The scheduler tables also drive the
+  channel-interleaved SpMV of ``ops/spmv_cisr.py``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """COO (coordinate) sparse matrix — the interchange format.
 
-TPU-native analog of the reference's ``MMRawData`` triplet array
+Device analog of the reference's ``MMRawData`` triplet array
 (main-cli.c:42-47). Differences by design:
 
 * Structure-of-arrays (``rows``/``cols``/``vals`` as separate device

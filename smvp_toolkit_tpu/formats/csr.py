@@ -2,7 +2,7 @@
 
 Capability parity with the reference's CSR encoder embedded in
 ``smvp_csr_compute`` (main-cli.c:340-365: qsort row-major + single-pass
-``row_ptr``/``col_ind``/``val`` build), re-designed TPU-first:
+``row_ptr``/``col_ind``/``val`` build), re-designed for the device:
 
 * Encode runs entirely on device under ``jit``: ``jnp.lexsort`` by
   (row, col) + a vectorized ``searchsorted`` prefix build of ``row_ptr``.

@@ -2,8 +2,8 @@
 
 The XLA encoders (``formats/csr.py``, ``formats/tjds.py``) are the right
 shape for device execution, but on the host path (CLI encode, bench
-setup, shard planning) a large matrix pays general comparison sorts —
-and under the remote-TPU backend, a whole extra compiled program. Every
+setup, shard planning) a large matrix pays general comparison sorts
+plus one extra compiled program per shape. Every
 encode sort key is a bounded integer, so ``native/encode.cpp`` replaces
 them with stable counting sorts: O(nnz + nrows + ncols), bit-identical
 output order (tests/test_native_encode.py proves equality array-by-array

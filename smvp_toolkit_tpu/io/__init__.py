@@ -1,6 +1,6 @@
 """Matrix I/O: MatrixMarket (.mtx) reading and writing.
 
-TPU-native re-design of the reference's vendored NIST mmio library
+Re-design of the reference's vendored NIST mmio library
 (reference mmio/mmio.c:16-483, mmio/mmio.h:16-133): host-side parsing that
 produces device-ready numpy/JAX arrays instead of fscanf triplet loops.
 """

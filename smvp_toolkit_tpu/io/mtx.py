@@ -7,7 +7,7 @@ writers mmio.c:172-178,372-425) plus the CLI-side staging loop
 (reference main-cli.c:1405-1441: sparse-only gate, pattern→1.0 values,
 1-based→0-based index shift).
 
-Design differences from the reference (intentional, TPU-first):
+Design differences from the reference (intentional, device-first):
 
 * Parsing is vectorized host-side with numpy (``np.frombuffer`` on the
   whitespace-split payload) instead of a per-line ``fscanf`` loop; a C++

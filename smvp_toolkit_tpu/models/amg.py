@@ -4,7 +4,7 @@ The strongest member of the preconditioner ladder for elliptic/SPD
 systems: where IC(0) cuts Poisson iteration counts ~3x, a V-cycle cuts
 them to O(10) *independent of problem size*.
 
-TPU shape of the design (same split as SELL planning and ILU):
+Shape of the design (the same host/device split as ILU):
 
 * **Setup is host-side, encode-time** (numpy/scipy): strength graph,
   greedy aggregation, smoothed prolongator ``P = (I − ω D⁻¹A) P₀``,
@@ -12,10 +12,10 @@ TPU shape of the design (same split as SELL planning and ILU):
   data-dependent sparsity that no static-shape device program can
   produce (reference analog: the toolkit's other host-side planners).
 * **The apply is a fixed-shape device program**: every level's A, P and
-  Pᵀ are ordinary encoded CSR operators (SELL on the Pallas path via
-  ``op_builder``), the smoother is damped Jacobi (diagonal multiplies —
+  Pᵀ are ordinary encoded CSR operators (another kernel, e.g. a sharded
+  one, via ``op_builder``), the smoother is damped Jacobi (diagonal multiplies —
   no trisolves, communication-free under sharding), and the coarsest
-  level is one dense (n_c × n_c) inverse — MXU work. The V-cycle
+  level is one dense (n_c × n_c) inverse — one matrix product. The V-cycle
   recursion unrolls at trace time over the static level count, so the
   whole apply jits into one program and composes with ``pcg_precond``'s
   ``lax.while_loop``.
@@ -242,8 +242,7 @@ def amg_setup(
         levels.append(AMGLevel(
             n=a.shape[0],
             # Level 0 reuses the caller's encoded matrix (the dominant
-            # operator would otherwise exist twice on device, and the
-            # SELL operator cache for it would never hit).
+            # operator would otherwise exist twice on device).
             a_csr=matrix if li == 0 else _encode(a),
             p_csr=_encode(p),
             pt_csr=_encode(p.T.tocsr()),
@@ -295,8 +294,8 @@ def amg_preconditioner(
     multiplies, zero inner products). Both smoothers' error propagators
     are polynomials in D⁻¹A — A-self-adjoint — so the symmetric cycle
     stays SPD either way. ``op_builder`` puts every level's A, P and Pᵀ
-    on the Pallas SELL path (same contract as the ILU/SSOR factories);
-    the default is the XLA CSR kernel. Pass a prebuilt ``levels`` (from
+    on another kernel, e.g. a sharded one (same contract as the ILU/SSOR
+    factories); the default is the XLA CSR kernel. Pass a prebuilt ``levels`` (from
     :func:`amg_setup`) to reuse one hierarchy across factories; extra
     keywords go to :func:`amg_setup`.
     """
@@ -342,8 +341,7 @@ def amg_preconditioner(
         """Apply a level operator to a vector OR an (n, k) block.
 
         Blocks ride the operator's ``matmat`` when it has one (the
-        fused SELL SpMM); XLA closures fall back to the device SpMM
-        for the default kernel, else per-column applies. This makes
+        default kernel's k-wide SpMM), else per-column applies. This makes
         the whole V-cycle k-wide — one cycle preconditions all k
         LOBPCG residuals.
         """
@@ -402,7 +400,9 @@ def amg_preconditioner(
     def _vcycle(li: int, b: jax.Array) -> jax.Array:
         lv = levels[li]
         if lv.coarse_inv is not None:
-            return lv.coarse_inv @ b  # works for (n_c,) and (n_c, k)
+            # (n_c,) and (n_c, k) alike; full f32, never TF32.
+            return jnp.matmul(lv.coarse_inv, b,
+                              precision=jax.lax.Precision.HIGHEST)
         a_op, p_op, pt_op = ops[li]
         x = _smooth(lv, a_op, None, b)
         r = b - _ap(a_op, x)
@@ -418,7 +418,7 @@ def amg_preconditioner(
 
     def apply(r: jax.Array) -> jax.Array:
         """M⁻¹ r for a vector (n,) or a block (n, k) — block applies
-        run the whole V-cycle k-wide (fused SpMM level operators)."""
+        run the whole V-cycle k-wide (SpMM level operators)."""
         b = r[:n0].astype(jnp.float32)
         z = _vcycle(0, b)
         for _ in range(n_cycles - 1):

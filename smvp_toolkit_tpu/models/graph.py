@@ -1,12 +1,12 @@
 """Graph neural layers on the sparse SpMV/SpMM engine.
 
 The reference toolkit stops at y = A·x (main-cli.c:410-416); the natural
-production consumer of a sparse engine on TPU is graph learning, where
-the hot op is S·H for a normalized adjacency S and a dense feature block
-H. These layers compose the framework's SpMM with dense MXU matmuls,
-fully jit-compiled:
+production consumer of a sparse engine on an accelerator is graph
+learning, where the hot op is S·H for a normalized adjacency S and a
+dense feature block H. These layers compose the framework's SpMM with
+dense matrix products, fully jit-compiled:
 
-* feature transform H·W — dense MXU matmul (bf16-friendly),
+* feature transform H·W — a dense matrix product,
 * neighborhood aggregation S·(HW) — the sparse engine's SpMM,
 * training loop — `lax.scan` over jitted value_and_grad steps (no host
   round trips; SpMM is linear so autodiff flows through the XLA kernels
@@ -79,7 +79,7 @@ def gcn_layer(
 ) -> jax.Array:
     """One GCN layer: act(S · (H W) + b).
 
-    Transform-then-aggregate: the dense H·W runs on the MXU first so the
+    Transform-then-aggregate: the dense H·W runs first so the
     SpMM aggregates the (usually narrower) output width.
 
     ``spmm``: injectable aggregation kernel ``(s, hw) -> S·hw`` — pass
@@ -89,7 +89,8 @@ def gcn_layer(
     to a reduce-scatter of the cotangent). Defaults to the single-chip
     XLA kernel.
     """
-    hw = h @ w
+    # Full f32: a default-precision product may run in TF32 on a GPU.
+    hw = jnp.matmul(h, w, precision=jax.lax.Precision.HIGHEST)
     out = (spmm or spmm_csr)(s, hw)
     if b is not None:
         out = out + b
@@ -178,10 +179,6 @@ def gcn_train_step_edges(
     (the attention-free cousin of GAT) costs one extra gradient, no new
     kernels. Entries padded past ``s.nnz`` aggregate into no row, so
     their gradient is exactly 0 and they stay put under SGD.
-
-    The Pallas counterpart for y = A·x is
-    ``SellSpMV.differentiable_edges`` (ops/spmv_pallas.py), which runs
-    forward, d/dx, and d/d(values) all on the SELL kernel family.
 
     ``spmm``: injectable aggregation ``(m, z) -> A·z`` receiving the
     live-valued matrix ``m`` — for DISTRIBUTED edge training pass

@@ -4,7 +4,7 @@ All solvers are structured for XLA: fixed iteration counts via
 ``lax.scan``/``fori_loop`` (static trip counts, no data-dependent Python
 control flow), optional early-exit via ``lax.while_loop`` with on-device
 convergence checks. Any SpMV implementation with the ``spmv(matrix, x)``
-signature can be injected (XLA or Pallas).
+signature can be injected (XLA, cuSPARSE or sharded).
 """
 
 from __future__ import annotations
@@ -16,6 +16,17 @@ import jax
 import jax.numpy as jnp
 
 from smvp_toolkit_tpu.ops.spmv_xla import spmv_csr
+
+# Dense products (Gram matrices, Rayleigh-Ritz, GMRES update, block
+# inverses) run at full f32: on a GPU a default-precision f32 product
+# may run in TF32 (~3 decimal digits), which the Krylov recurrences and
+# the tests' f32 tolerances do not allow for.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
 
 __all__ = [
     "power_iteration",
@@ -180,7 +191,7 @@ def conjugate_gradient(
     ``tol``: optional RELATIVE residual target (|r|/|b|). When set, the
     loop runs under ``lax.while_loop`` and stops at the first of
     ``num_iters`` / tolerance — still entirely on device (no per-step
-    host sync; TPU supports data-dependent trip counts), saving the
+    host sync; the device runs data-dependent trip counts), saving the
     remaining SpMVs in serving paths. The returned residual-norm array
     keeps the static ``num_iters`` length; entries past the stopping
     step repeat the final norm, so ``res[-1]`` is the converged
@@ -405,7 +416,7 @@ def block_cg(
     r = b - spmm(matrix, x)
     z = m_mul(r)
     p = z
-    gram = r.T @ z  # (k, k)
+    gram = _mm(r.T, z)  # (k, k)
     eye = jnp.eye(k, dtype=b.dtype)
 
     def _solve(g, rhs):
@@ -416,13 +427,13 @@ def block_cg(
     def step(carry, _):
         x, r, p, gram = carry
         q = spmm(matrix, p)
-        alpha = _solve(p.T @ q, gram)
-        x = x + p @ alpha
-        r = r - q @ alpha
+        alpha = _solve(_mm(p.T, q), gram)
+        x = x + _mm(p, alpha)
+        r = r - _mm(q, alpha)
         z = m_mul(r)
-        gram_new = r.T @ z
+        gram_new = _mm(r.T, z)
         beta = _solve(gram, gram_new)
-        p = z + p @ beta
+        p = z + _mm(p, beta)
         return (x, r, p, gram_new), jnp.linalg.norm(r, axis=0)
 
     (x, r, p, gram), res_norms = jax.lax.scan(
@@ -632,8 +643,8 @@ def lobpcg(
 
     Locally-optimal block preconditioned CG (Knyazev) — THE eigensolver
     shape for this engine: the per-step work is two SpMMs over the
-    (n, k) block (the fused SELL launch via ``spmm=``), one tall-skinny
-    QR and one (3k, 3k) dense eigenproblem (MXU work), and the optional
+    (n, k) block (any k-wide SpMM via ``spmm=``), one tall-skinny
+    QR and one (3k, 3k) dense eigenproblem, and the optional
     preconditioner ``m`` (e.g. :func:`amg_preconditioner` — AMG turns
     the smallest-eigenpair problem grid-independent exactly as it does
     linear solves). Runs a fixed ``num_iters`` under ``lax.scan``.
@@ -642,7 +653,7 @@ def lobpcg(
     the pcg factory contract (residual vector → preconditioned image);
     appliers that declare ``m.supports_block = True`` (the AMG factory)
     receive the whole (n, k) residual block in ONE call — the V-cycle
-    then runs k-wide on fused SpMMs — while vector-only factories are
+    then runs k-wide on SpMMs — while vector-only factories are
     applied per column. Returns
     ``(theta, X, res)``: Ritz values (k,) ascending (descending for
     ``largest=True``), eigenvector block (n, k), per-iteration residual
@@ -678,15 +689,15 @@ def lobpcg(
         S = jnp.concatenate([X, W, P], axis=1)  # (n, 3k)
         Q, _ = jnp.linalg.qr(S)
         AQ = a_mul(Q)
-        T = Q.T @ AQ
+        T = _mm(Q.T, AQ)
         T = (T + T.T) * 0.5
         evals, C = jnp.linalg.eigh(T)  # ascending
         Ck = C[:, -k:][:, ::-1] if largest else C[:, :k]
         thetan = (evals[-k:][::-1] if largest else evals[:k])
-        Xn = Q @ Ck
+        Xn = _mm(Q, Ck)
         # The locally-optimal direction: the W/P contribution to the new
         # block, renormalized so the next basis stays well-conditioned.
-        Pn = Q[:, k:] @ Ck[k:, :]
+        Pn = _mm(Q[:, k:], Ck[k:, :])
         Pn = Pn / (jnp.linalg.norm(Pn, axis=0, keepdims=True) + 1e-30)
         return (Xn, Pn, thetan), res
 
@@ -716,9 +727,9 @@ def gmres(
     check saves a whole m-SpMV Arnoldi cycle once converged), via the
     same ``lax.while_loop`` machinery as the CG family.
 
-    TPU structure notes: the Krylov basis is a static (m+1, n) array
+    Structure notes: the Krylov basis is a static (m+1, n) array
     updated with ``dynamic_update_slice`` — no Python-level growth; all
-    inner products are fused VPU reductions.
+    inner products are fused reductions.
     """
     n = b.shape[0]
     m = restart
@@ -734,6 +745,7 @@ def gmres(
         def arnoldi_step(carry, j):
             V, H = carry
             w = spmv(matrix, V[j])
+            wnorm = jnp.linalg.norm(w)
 
             # Modified Gram-Schmidt against all m+1 rows; rows > j are
             # zero so the masked projections are no-ops (static shapes).
@@ -743,8 +755,15 @@ def gmres(
 
             w, hcol = jax.lax.scan(mgs, w, jnp.arange(m + 1))
             hnorm = jnp.linalg.norm(w)
+            # Lucky breakdown (the Krylov space is invariant, e.g. once
+            # m exceeds n): what is left of w is rounding noise. Extend
+            # the basis with zeros instead of normalized noise, which
+            # would corrupt the least-squares solve.
+            live = hnorm > 64 * jnp.finfo(b.dtype).eps * wnorm
+            hnorm = jnp.where(live, hnorm, 0.0)
             hcol = hcol.at[j + 1].set(hnorm)
-            V = V.at[j + 1].set(w / jnp.maximum(hnorm, 1e-30))
+            V = V.at[j + 1].set(
+                jnp.where(live, w / jnp.maximum(hnorm, 1e-30), 0.0))
             H = H.at[:, j].set(hcol)
             return (V, H), None
 
@@ -754,7 +773,7 @@ def gmres(
         # Least squares min ||beta e1 - H y|| via dense QR (m is small).
         e1 = jnp.zeros((m + 1,), b.dtype).at[0].set(beta)
         y, *_ = jnp.linalg.lstsq(H, e1, rcond=None)
-        x = x + V[:m].T @ y
+        x = x + _mm(V[:m].T, y)
         res = jnp.linalg.norm(b - spmv(matrix, x))
         return x, res
 
@@ -913,8 +932,8 @@ def ic0_preconditioner(
     ``factors`` comes from :func:`~smvp_toolkit_tpu.ops.ilu.ic0`
     (host-side, encode-time). The apply is two fixed-sweep
     truncated-Neumann triangular solves (``ops/ilu.py``) — pure
-    SpMV + VPU multiplies with a static trip count, the TPU-idiomatic
-    replacement for sequential forward/back substitution. Because both
+    SpMV + elementwise multiplies with a static trip count, the
+    data-parallel replacement for sequential forward/back substitution. Because both
     solves use the SAME sweep count, the composite is exactly
     ``P_Lᵀ·P_L``: symmetric positive definite for every ``sweeps``
     value, so the inexact apply is rigorously CG-safe (a constant SPD
@@ -926,9 +945,9 @@ def ic0_preconditioner(
 
     ``op_builder`` puts the trisolves on a kernel's performance path:
     it receives each concrete factor ``CSRMatrix`` once at factory time
-    and returns a closure ``op(x)`` (e.g.
-    ``ops.spmv_pallas.sell_op_csr`` — the SELL operator plans
-    host-side, so building here keeps the solver jittable).
+    and returns a closure ``op(x)`` (e.g. a row-block sharded SpMV over
+    a ``shard_csr`` of the factor — sharding happens host-side, so
+    building here keeps the solver jittable).
     """
     from smvp_toolkit_tpu.ops.ilu import trisolve_neumann
 
@@ -1043,11 +1062,11 @@ def block_jacobi_preconditioner(
 ) -> Callable:
     """Block-Jacobi factory: ``M = blockdiag(A₁₁, A₂₂, …)``, blocks dense.
 
-    The MXU-native member of the preconditioner family: the diagonal
+    The matmul-shaped member of the preconditioner family: the diagonal
     blocks are extracted host-side (encode-time, like the other
     factories), inverted ONCE as a batched dense ``(nb, block, block)``
-    ``jnp.linalg.inv`` — exactly the regular, matmul-shaped work TPUs
-    are built for — and every apply is a single batched mat-vec, no
+    ``jnp.linalg.inv`` — regular, dense work — and every apply is a
+    single batched mat-vec, no
     sweeps, no sparsity, no gather. For symmetric A each block (hence
     its inverse) is symmetric, so the apply is a constant symmetric
     operator — CG-safe whenever the blocks are PD (any SPD A).
@@ -1141,7 +1160,7 @@ def block_jacobi_preconditioner(
 
     def apply(r: jax.Array) -> jax.Array:
         rb = jnp.pad(r, (0, pad)).reshape(nb, block)
-        y = jnp.einsum("nij,nj->ni", binv_dev, rb)
+        y = jnp.einsum("nij,nj->ni", binv_dev, rb, precision=_HIGHEST)
         return y.reshape(-1)[:n]
 
     return apply

@@ -3,7 +3,7 @@
 The shared libraries in this directory are OPTIONAL accelerators — every
 caller falls back to a numpy/XLA path — but silently missing libraries
 turn a fresh checkout into a slower framework with 30+ silently skipped
-tests (round-4 verdict). :func:`ensure_native` builds them on demand
+tests. :func:`ensure_native` builds them on demand
 (one ``make`` invocation) and reports what is still missing so callers
 can fail loudly instead.
 """
@@ -20,7 +20,6 @@ LIBS = [
     "libmtxio.so",
     "libcisr.so",
     "libspmv.so",
-    "libsellplan.so",
     "libencode.so",
     "libilu.so",
     "libamg.so",

@@ -1,7 +1,7 @@
 // Native COO->CSR / COO->TJDS encode fast paths.
 //
 // The XLA encoders (formats/csr.py, formats/tjds.py) express encode as
-// device lexsorts — the right shape for a TPU program, but on the CPU
+// device lexsorts — the right shape for a device program, but on the CPU
 // host path (CLI encode, bench setup, shard planning) a 10M-nnz matrix
 // pays tens of seconds for two general comparison sorts. Every sort key
 // here is a bounded integer (row, column, jagged-diagonal id), so the

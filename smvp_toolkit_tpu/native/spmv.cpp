@@ -2,9 +2,9 @@
 //
 // The framework's CPU execution path: the same CSR traversal as the
 // reference hot loop (main-cli.c:410-416) but compiled -O3 -march=native
-// on the host, single-threaded or row-block threaded. Used when no TPU
-// is attached (the CLI's `--kernel native` and bench.py's CPU fallback);
-// the XLA CPU path remains the portable default.
+// on the host, single-threaded or row-block threaded. Used by the CLI's
+// `--kernel native` and as the single-thread CPU baseline; the XLA CPU
+// path remains the portable default.
 
 #include <cstdint>
 #include <thread>

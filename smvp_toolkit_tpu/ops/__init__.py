@@ -1,4 +1,4 @@
-"""SpMV compute kernels: jitted XLA and Pallas-TPU implementations.
+"""SpMV compute kernels: jitted XLA implementations.
 
 Replaces the reference's C pointer-chasing hot loops (CSR
 main-cli.c:410-416, TJDS main-cli.c:1013-1020) with vectorized on-device
@@ -13,6 +13,7 @@ from smvp_toolkit_tpu.ops.spmv_xla import (
     spmm_csr,
     spmm_tjds,
 )
+from smvp_toolkit_tpu.ops.spmv_cusparse import csr_spmv_for, spmv_csr_cusparse
 from smvp_toolkit_tpu.ops.spmv_cisr import spmv_cisr, CisrSpMV
 from smvp_toolkit_tpu.ops.algebra import (
     transpose,
@@ -23,7 +24,6 @@ from smvp_toolkit_tpu.ops.algebra import (
     add,
     matmul,
 )
-from smvp_toolkit_tpu.ops.cg_fused import fused_cg
 from smvp_toolkit_tpu.ops.ilu import (
     ilu0,
     ic0,
@@ -33,10 +33,11 @@ from smvp_toolkit_tpu.ops.ilu import (
 )
 
 __all__ = [
-    "fused_cg",
     "spmv_coo",
     "spmv_csr",
     "spmv_csr_cumsum",
+    "spmv_csr_cusparse",
+    "csr_spmv_for",
     "spmv_tjds",
     "spmv_cisr",
     "CisrSpMV",

@@ -104,8 +104,8 @@ def matmul(a: COOMatrix, b: COOMatrix, *, pad_to: int = 128) -> COOMatrix:
 
     The output sparsity pattern is data-dependent — its nnz cannot be
     known before the product is formed — so no static-shape device
-    program can produce it directly. Like SELL planning, this is
-    therefore an ENCODE-TIME host operation (scipy's CSR SpGEMM); the
+    program can produce it directly. This is therefore an ENCODE-TIME
+    host operation (scipy's CSR SpGEMM); the
     result lands back on device as a fresh COO. Use it to precompute
     operator products (normal equations AᵀA, graph powers A²) that the
     device SpMV/solvers then iterate on. For dense right-hand blocks

@@ -1,18 +1,18 @@
-"""Incomplete factorizations (ILU(0) / IC(0)) + TPU-idiomatic triangular apply.
+"""Incomplete factorizations (ILU(0) / IC(0)) + data-parallel triangular apply.
 
 New capability beyond the reference toolkit (whose only workload is the
 timed ``y = A·x`` loop, main-cli.c:402-420): encode-time incomplete
 factorization preconditioners for the solver family in
 ``models/solvers.py``.
 
-TPU-first split of the work, same shape as the SELL planner:
+Host/device split of the work:
 
 * **Factorization is host-side, encode-time.** ILU(0)/IC(0) are
   inherently sequential row eliminations (each row consumes finished
-  earlier rows) — the wrong shape for the MXU and for XLA's static
-  control flow, and they run ONCE per matrix. They execute in numpy
-  float64 on the host, exactly like SELL planning and the native
-  counting-sort encoders.
+  earlier rows) — the wrong shape for a data-parallel device and for
+  XLA's static control flow, and they run ONCE per matrix. They execute
+  in numpy float64 on the host, like the native counting-sort
+  encoders.
 * **Application is device-side, fixed-shape.** The classic forward/back
   substitution is also sequential, and level-scheduled solves degrade to
   ``nrows`` steps on banded matrices (a tridiagonal matrix has one level
@@ -22,9 +22,9 @@ TPU-first split of the work, same shape as the SELL planner:
 
       z_s = sum_{k<s} (-D^-1 N)^k D^-1 r
 
-  computed as ``s`` SpMV + VPU-multiply sweeps — static trip count,
-  no data-dependent control flow, every FLOP on the bandwidth-optimal
-  SpMV path (injectable: XLA, Pallas SELL, or sharded). The series is
+  computed as ``s`` SpMV + elementwise-multiply sweeps — static trip
+  count, no data-dependent control flow, every FLOP on the SpMV path
+  (injectable: XLA, cuSPARSE, or sharded). The series is
   EXACT once ``s`` exceeds the nilpotency index, and a valid
   preconditioner at any ``s``.
 
@@ -284,8 +284,7 @@ def ilu0(csr: CSRMatrix) -> ILU0Factors:
     only needs to be a fixed nonsingular operator near A⁻¹).
 
     Cost is O(sum over rows of row_nnz · avg U-row length) — encode-time
-    work in the same spirit (and typically the same ballpark) as SELL
-    planning.
+    host work, like the native encoders.
     """
     n, m = csr.shape
     if n != m:

@@ -1,12 +1,12 @@
 """Extended-precision SpMV: double-float (float32-pair) arithmetic.
 
 The reference computes SpMV in float64 (main-cli.c:63-66 double arrays).
-TPU has no fast f64 — the TPU-native answer is error-free transformation
-arithmetic: every value is an unevaluated sum ``hi + lo`` of two f32s
+This path keeps f32 storage and f32 arithmetic and recovers most of the
+lost digits by error-free transformation arithmetic: every value is an unevaluated sum ``hi + lo`` of two f32s
 (~48 bits of mantissa vs f64's 53). Products use Dekker/Veltkamp
 splitting (exact without FMA); the row reduction is a compensated
 associative scan followed by the scatter-free row_ptr prefix-difference.
-All ops are elementwise/scan VPU work under jit — no emulated f64 dtype.
+All ops are elementwise/scan work under jit — no f64 dtype.
 
 This is the high-accuracy verification path (and the right tool for
 matrices whose row sums cancel, where plain f32 loses all digits).

@@ -10,7 +10,7 @@ computation the FPGA would perform:
     for each beat g (slot group), each channel s in parallel:
         y[row_of[g, s]] += vals[g, s] * x[col_ind[g, s]]
 
-TPU-native realization: the whole schedule is one (G, S) block — the
+Device realization: the whole schedule is one (G, S) block — the
 x-read is a gather, the per-channel row accumulation is a segment-sum
 over ``row_of`` (idle slots carry a sentinel row that lands in a dropped
 overflow bucket). Rows are NOT contiguous in the stream (that is the

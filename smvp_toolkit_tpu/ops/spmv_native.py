@@ -1,9 +1,9 @@
 """Native CPU SpMV backend (ctypes binding to native/spmv.cpp).
 
-The framework's CPU execution path when no TPU is attached: the
+The framework's native CPU execution path: the
 reference's CSR traversal compiled -O3 -march=native, serial or
 row-block threaded. Complements (does not replace) the portable XLA
-CPU path — callers choose explicitly (`--kernel native`, bench fallback).
+CPU path — callers choose explicitly (`--kernel native`).
 """
 
 from __future__ import annotations

@@ -3,12 +3,12 @@
 The reference computes SpMV with sequential pointer-chasing loops
 (CSR: ``for row: for j in row_ptr[row]..row_ptr[row+1]`` main-cli.c:410-416;
 TJDS: ``for d: for j in start_pos[d]..start_pos[d+1]`` main-cli.c:1013-1020).
-On TPU both become one vectorized program: gather x per nonzero, multiply,
-and segment-reduce into y. XLA lowers the sorted segment-sum to a prefix
-reduction with no data-dependent control flow.
+On the device both become one vectorized program: gather x per nonzero,
+multiply, and segment-reduce into y, with no data-dependent control flow.
 
-These are the baseline/verification kernels; the performance path is
-``smvp_toolkit_tpu.ops.spmv_pallas``.
+These are the portable kernels and the reference the other routes are
+checked against; on a GPU the CLI's CSR default is the cuSPARSE route
+(``ops/spmv_cusparse.py``).
 """
 
 from __future__ import annotations
@@ -83,8 +83,7 @@ def spmm_csr(csr: CSRMatrix, x: jax.Array) -> jax.Array:
 
     Multi-vector capability beyond the reference (which only ever
     multiplies one ones-vector). The k dimension rides along the gather
-    and the segment reduction; k should be a lane-friendly multiple for
-    best TPU layout.
+    and the segment reduction.
     """
     row_ids = csr.row_ids if csr.row_ids is not None else _row_ids_from_ptr(csr)
     products = csr.vals[:, None] * x[csr.col_ind, :]
@@ -113,8 +112,7 @@ def spmv_tjds(tjds: TJDSMatrix, x: jax.Array) -> jax.Array:
     The permuted x vector is read by position-within-diagonal — within
     diagonal ``d`` positions run 0..n_d-1 contiguously, so on the packed
     layout this is ``xp[offsets]`` with ``offsets`` a concatenation of
-    iotas (contiguous slices; the Pallas kernel streams them without a
-    gather). The irregular output rows become a segment-sum over
+    iotas (contiguous slices of xp). The irregular output rows become a segment-sum over
     ``row_ind`` (padding rows == nrows are dropped by ``num_segments``).
     """
     xp = x[tjds.perm]

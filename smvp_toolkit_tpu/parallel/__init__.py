@@ -5,7 +5,7 @@ MPI/OpenMP/SIMD); this subsystem is the new capability demanded by the
 north star: CSR row-block sharding and TJDS nnz-stripe sharding across a
 ``jax.sharding.Mesh``, dense x replicated, partial y reassembled in matrix
 order (ordered ``all_gather`` for row blocks, ``psum`` for stripes) — all
-collectives ride ICI/DCN through XLA, no hand-written NCCL/MPI analog.
+collectives are XLA's (NCCL on the GPU), none hand-written.
 """
 
 from smvp_toolkit_tpu.parallel.mesh import (
@@ -30,15 +30,6 @@ from smvp_toolkit_tpu.parallel.spmv_2d import (
     spmv_csr_2d,
     spmm_csr_2d,
 )
-from smvp_toolkit_tpu.parallel.sell_dist import (
-    ShardedSell,
-    differentiable_spmm_sharded,
-    shard_sell,
-    shard_sell_transpose,
-    spmm_sell_sharded,
-    spmm_sell_sharded_t,
-    spmv_sell_sharded,
-)
 
 __all__ = [
     "make_mesh",
@@ -57,11 +48,4 @@ __all__ = [
     "shard_csr_2d",
     "spmv_csr_2d",
     "spmm_csr_2d",
-    "ShardedSell",
-    "differentiable_spmm_sharded",
-    "shard_sell",
-    "shard_sell_transpose",
-    "spmm_sell_sharded",
-    "spmm_sell_sharded_t",
-    "spmv_sell_sharded",
 ]

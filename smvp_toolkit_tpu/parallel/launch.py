@@ -1,15 +1,16 @@
 """Multi-host launch helper.
 
-One process per host on a TPU pod slice; this module wraps the
-boilerplate: initialize the process group, build the global mesh, load +
-shard the matrix, run the benchmark, and report per-host/aggregate
-numbers. The same entry point also works single-process (CPU simulation
-via ``--xla_force_host_platform_device_count``), which is how CI runs it.
-
-Pod usage (same command on every host; TPU metadata auto-detects the
-coordinator):
+One process per host, each driving every card of its host; this module
+wraps the boilerplate: initialize the process group, build the global
+mesh, load + shard the matrix, run the benchmark, and report
+per-host/aggregate numbers. On a single host one process and no
+coordinator is the whole setup (also the CPU simulation via
+``--xla_force_host_platform_device_count``, which is how CI runs it):
 
     python -m smvp_toolkit_tpu.parallel.launch matrix.mtx --alg csr -n 100
+
+Several hosts run the same command with ``--coordinator host:port
+--num-processes N --process-id I``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Device mesh construction + multi-host process-group initialization.
 
-TPU-native replacement for what a CUDA framework would do with
-NCCL/MPI bootstrap: ``jax.distributed.initialize()`` forms the process
-group (one process per host), and a 1-D ``Mesh`` over all addressable
-chips carries the data-parallel axis. ICI moves data within a slice,
-DCN between hosts — both behind the same collective API.
+On a GPU host one process drives every card of the host, and a 1-D
+``Mesh`` over all addressable devices carries the data-parallel axis;
+XLA hands its collectives to NCCL (NVLink within a host). Several hosts
+form one process group through ``jax.distributed.initialize()``, one
+process per host, with the coordinator address, process count and
+process id given explicitly.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ def distributed_init(
     Must run before anything touches the XLA backend (so no
     ``jax.devices()``/``jax.process_count()`` guards here — they would
     themselves initialize the backend and make ``initialize()`` raise).
-    With no arguments, ``jax.distributed.initialize`` auto-detects the
-    coordinator from TPU pod metadata; in a plain single-process
-    environment that detection fails and we quietly stay single-process.
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``: a GPU cluster publishes no metadata for
+    ``jax.distributed.initialize`` to find them itself. Without them,
+    or with the backend already up, the call fails and the process
+    stays single-process (one process driving all local cards).
     """
     global _DIST_INITIALIZED
     if _DIST_INITIALIZED:
@@ -48,8 +51,8 @@ def distributed_init(
         _DIST_INITIALIZED = True
         return True
     except (RuntimeError, ValueError):
-        # Not a pod / backend already up / no coordinator to find:
-        # single-process operation.
+        # No coordinator given / backend already up: single-process
+        # operation over the local devices.
         return False
 
 
@@ -63,7 +66,7 @@ def make_mesh(
     axis_name: str = DP_AXIS,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """A 1-D mesh over ``n_devices`` chips (default: all addressable)."""
+    """A 1-D mesh over ``n_devices`` devices (default: all addressable)."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:

@@ -16,8 +16,9 @@ rows on a single device. Here BOTH matrix dimensions shard:
 
 At C = 1 this degrades to the 1-D row-block design
 (``spmv_dist.py``); at R = 1 it is pure column parallelism (x sharded,
-y reduced). Collectives ride the mesh axes, so on hardware they map to
-ICI rings exactly like TP matmul sharding does.
+y reduced). Collectives ride the mesh axes like TP matmul sharding;
+on GPUs joined all to all by NVLink the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations

@@ -352,50 +352,14 @@ def spmv_tjds_sharded(sharded: ShardedTJDS, x: jax.Array, mesh: Mesh) -> jax.Arr
 
 
 def shard_and_bench(
-    alg_name, encoded, x, n_shards, *, iterations=1000, kernel="xla",
-    balance="rows",
+    alg_name, encoded, x, n_shards, *, iterations=1000, balance="rows",
 ):
-    """Shard an encoded matrix over n devices and benchmark sharded SpMV.
-
-    ``kernel="pallas"`` runs the SELL-T1 Pallas kernel per device under
-    shard_map (format decoded to COO for planning); ``"xla"`` uses the
-    portable segment-sum kernels.
-    """
+    """Shard an encoded matrix over n devices and benchmark sharded SpMV
+    (the segment-sum kernels under ``shard_map``)."""
     from smvp_toolkit_tpu.bench.harness import time_fn
 
     mesh = make_mesh(n_shards)
-    if kernel == "pallas":
-        from smvp_toolkit_tpu.ops.spmv_pallas import (
-            _triplets_from_csr_host,
-            _triplets_from_tjds_host,
-        )
-        from smvp_toolkit_tpu.formats.coo import COOMatrix
-        from smvp_toolkit_tpu.parallel.sell_dist import (
-            shard_sell,
-            spmv_sell_sharded,
-        )
-
-        trip = (
-            _triplets_from_csr_host(encoded)
-            if alg_name == "CSR"
-            else _triplets_from_tjds_host(encoded)
-        )
-        r, c, v, shape = trip
-        coo = COOMatrix.from_numpy(
-            np.asarray(r, dtype=np.int32), np.asarray(c, dtype=np.int32),
-            v, shape=shape,
-        )
-        # A bfloat16-encoded matrix keeps bf16 value mode across shards
-        # (mirrors spmv_pallas._cached_op's single-chip rule).
-        vdt = (
-            jnp.bfloat16
-            if jnp.dtype(getattr(encoded, "dtype", jnp.float32))
-            == jnp.dtype(jnp.bfloat16)
-            else None
-        )
-        sharded = shard_sell(coo, mesh, value_dtype=vdt)
-        fn = lambda: spmv_sell_sharded(sharded, x, mesh)  # noqa: E731
-    elif alg_name == "CSR":
+    if alg_name == "CSR":
         sharded = shard_csr(encoded, mesh, balance=balance)
         fn = lambda: spmv_csr_sharded(sharded, x, mesh)  # noqa: E731
     elif alg_name == "TJDS":

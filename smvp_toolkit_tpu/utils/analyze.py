@@ -1,10 +1,9 @@
-"""Matrix structure analysis: the numbers that drive TPU kernel choices.
+"""Matrix structure analysis: the numbers that drive SpMV kernel choices.
 
-A production framework needs to *explain* its encode decisions; this
-module reports the structural statistics the SELL-T1 planner keys on
-(row-length distribution, column-tile spread, slot padding, window
-sizes) plus classic sparse metrics (bandwidth, density). Used by the CLI
-``--analyze`` flag and by tests.
+Reports the structural statistics a GPU SpMV's work split depends on
+(row-length distribution and skew, empty rows and columns, bandwidth,
+density, TJDS diagonal count). Used by the CLI ``--analyze`` flag and by
+tests.
 """
 
 from __future__ import annotations
@@ -52,32 +51,6 @@ def analyze(coo: COOMatrix) -> Dict:
         "p90": int(np.percentile(spread, 90)),
         "max": int(spread.max()),
     }
-    # SELL-T1 planner metrics (real-valued matrices only — the planner
-    # refuses complex values; complex SpMV runs the XLA kernels).
-    if np.iscomplexobj(np.asarray(v)):
-        out["tjds_diags"] = int(cl.max())
-        return out
-    # The PRODUCTION plan choice: the calibrated autotuner's chunk +
-    # chain split + VMEM (what the operator will actually run).
-    from smvp_toolkit_tpu.ops.spmv_pallas import _split_policy, _tuned_plan
-
-    plan, vmem = _tuned_plan(r, c, v, coo.shape, bf16=False)
-    out["sell"] = {
-        "sublanes": plan.n_sublanes,
-        "slots": plan.slots(),
-        "padding_factor": float(plan.slots() / nnz),
-        "window_tiles": plan.window_tiles,
-        "col_tiles": plan.n_coltiles,
-        "chunks": plan.n_chunks,
-        "chunk": plan.chunk,
-        "split_chain": _split_policy(plan.chunk, 1),
-        "vmem_mb": vmem,
-        # HBM bytes one kernel launch moves, f32 and bf16 value modes —
-        # with the occupancy (nnz/slots) these set the kernel's
-        # speed-of-light nnz/s on a given chip.
-        "traffic_f32_bytes": plan.traffic_bytes(4, None, 4),
-        "traffic_bf16_bytes": plan.traffic_bytes(2, None, 2),
-    }
     # TJDS metrics.
     out["tjds_diags"] = int(cl.max())
     return out
@@ -99,23 +72,5 @@ def format_analysis(stats: Dict) -> str:
         lines.append(
             f"bandwidth |r-c|: p50 {b['p50']}  p90 {b['p90']}  max {b['max']}"
         )
-        s = stats.get("sell")  # absent for complex matrices (XLA path)
-        if s is not None:
-            lines.append(
-                f"SELL plan (autotuned): {s['sublanes']} sublanes "
-                f"({s['padding_factor']:.1f}x slots), window "
-                f"{s['window_tiles']}/{s['col_tiles']} tiles, "
-                f"{s['chunks']} chunk(s) of {s['chunk']}, "
-                f"chain split {s.get('split_chain', 1)}"
-                + (f", VMEM {s['vmem_mb']} MB" if s.get('vmem_mb')
-                   else "")
-            )
-            if "traffic_f32_bytes" in s:
-                lines.append(
-                    f"SELL traffic/launch: f32 "
-                    f"{s['traffic_f32_bytes']/1e6:.2f} MB, bf16 "
-                    f"{s['traffic_bf16_bytes']/1e6:.2f} MB "
-                    f"(occupancy {1.0/s['padding_factor']:.2f})"
-                )
         lines.append(f"TJDS diagonals: {stats['tjds_diags']}")
     return "\n".join(lines)

@@ -70,9 +70,9 @@ def export_spmv(matrix, kernel=None, x_dtype=None) -> bytes:
     """Export ``x -> A·x`` with the encoded matrix baked in.
 
     ``kernel`` defaults to the XLA kernel matching the matrix's format
-    (CSR/TJDS/COO). The Pallas SELL operator can be exported on TPU by
-    passing ``kernel=op.__call__``-style callables; off-TPU its
-    interpreter mode uses host callbacks, which do not serialize.
+    (CSR/TJDS/COO). Library kernels (the cuSPARSE route) lower to custom
+    calls that ``jax.export`` does not guarantee stable, so the exported
+    program uses the XLA kernels.
     """
     if kernel is None:
         from smvp_toolkit_tpu.formats.coo import COOMatrix

@@ -25,8 +25,7 @@ from smvp_toolkit_tpu.formats.csr import CSRMatrix
 from smvp_toolkit_tpu.formats.tjds import TJDSMatrix
 from smvp_toolkit_tpu.io.mtx import MMTypeCode
 
-__all__ = ["save_matrix", "load_matrix", "save_plan", "load_plan",
-           "save_hierarchy", "load_hierarchy"]
+__all__ = ["save_matrix", "load_matrix", "save_hierarchy", "load_hierarchy"]
 
 _KINDS = {"COOMatrix": COOMatrix, "CSRMatrix": CSRMatrix, "TJDSMatrix": TJDSMatrix}
 
@@ -103,72 +102,6 @@ def load_matrix(source) -> Union[COOMatrix, CSRMatrix, TJDSMatrix]:
                 nnz=nnz,
             )
     raise ValueError(f"unknown checkpoint kind {kind!r}")
-
-
-def save_plan(dest, plan) -> None:
-    """Serialize a SELL execution plan (ops/sell_plan.SellPlan) to .npz.
-
-    Encode-once deployments reload the kernel-ready planes directly —
-    no re-planning, no triplet storage.
-    """
-    meta = {
-        "kind": "SellPlan",
-        "shape": list(plan.shape),
-        "nnz": int(plan.nnz),
-        "n_slices": int(plan.n_slices),
-        "n_coltiles": int(plan.n_coltiles),
-        "window_tiles": int(plan.window_tiles),
-        "chunk": int(plan.chunk),
-        "slice_window": int(plan.reduce_window()[1]),
-        "y_block_slices": int(plan.y_block_slices),
-    }
-    arrays = dict(
-        vals=plan.vals,
-        lane_idx=plan.lane_idx,
-        rel_tile=plan.rel_tile,
-        slice_of=plan.slice_of,
-        tile_base=plan.tile_base,
-        slice_base=plan.reduce_window()[0],
-    )
-    if plan.y_block_slices:  # streamed-y (v7) plans
-        arrays["y_block_id"] = plan.y_block_id
-    np.savez_compressed(
-        dest,
-        __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-        **arrays,
-    )
-
-
-def load_plan(source):
-    """Load a SELL plan checkpoint written by :func:`save_plan`."""
-    from smvp_toolkit_tpu.ops.sell_plan import SellPlan
-
-    with np.load(source) as z:
-        meta = json.loads(bytes(z["__meta__"]).decode())
-        if meta.get("kind") != "SellPlan":
-            raise ValueError(f"not a SellPlan checkpoint: {meta.get('kind')}")
-        return SellPlan(
-            vals=z["vals"],
-            lane_idx=z["lane_idx"],
-            rel_tile=z["rel_tile"],
-            slice_of=z["slice_of"],
-            tile_base=z["tile_base"],
-            shape=tuple(meta["shape"]),
-            nnz=int(meta["nnz"]),
-            n_slices=int(meta["n_slices"]),
-            n_coltiles=int(meta["n_coltiles"]),
-            window_tiles=int(meta["window_tiles"]),
-            chunk=int(meta["chunk"]),
-            # Round-2 checkpoints carry the reduce window; older ones
-            # fall back to the full reduce (slice_base=None).
-            slice_base=z["slice_base"] if "slice_base" in z.files else None,
-            slice_window=int(meta.get("slice_window", 0)),
-            # Round-3 streamed-y (v7) plans; absent in older checkpoints.
-            y_block_id=(
-                z["y_block_id"] if "y_block_id" in z.files else None
-            ),
-            y_block_slices=int(meta.get("y_block_slices", 0)),
-        )
 
 
 def save_hierarchy(dest, levels) -> None:

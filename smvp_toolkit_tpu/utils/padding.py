@@ -1,4 +1,4 @@
-"""Static-shape padding/alignment helpers (TPU tiling discipline)."""
+"""Static-shape padding/alignment helpers (stable shapes, fewer compiles)."""
 
 from __future__ import annotations
 

@@ -1,13 +1,10 @@
 """Matrix reordering utilities: RCM permutation + symmetric permute.
 
-Host-side, encode-time tools (like SELL planning): reordering changes
-the SPARSITY PATTERN, which no static-shape device program can do.
-Reverse Cuthill-McKee shrinks bandwidth — useful for ILU/IC fill
-quality and locality-sensitive backends. NOTE for the Pallas SELL
-kernel specifically: RCM was MEASURED AND REJECTED as a throughput
-optimization (PERFORMANCE.md round 2 — it grew the packed planes on
-memplus and bought little on pwt); these helpers exist for the
-numerics/analysis use cases, not as a kernel speedup.
+Host-side, encode-time tools: reordering changes the SPARSITY PATTERN,
+which no static-shape device program can do. Reverse Cuthill-McKee
+shrinks bandwidth — useful for ILU/IC fill quality and
+locality-sensitive backends (x-gather locality in cache); its SpMV
+effect on the GPU is not measured.
 """
 
 from __future__ import annotations

@@ -201,9 +201,11 @@ def test_analyze():
     stats = analyze(coo)
     assert stats["nnz"] == 291
     assert stats["row_len"]["max"] >= stats["row_len"]["p50"]
-    assert stats["sell"]["slots"] >= 291
+    r, c, _ = coo.to_numpy()
+    assert stats["row_len"]["max"] == np.bincount(r).max()
+    assert stats["tjds_diags"] == np.bincount(c).max()
     text = format_analysis(stats)
-    assert "SELL plan" in text and "bandwidth" in text
+    assert "TJDS diagonals" in text and "bandwidth" in text
 
 
 def test_analyze_empty():
@@ -270,8 +272,7 @@ def test_native_tjds_empty_matrix_threaded():
 
 
 def test_analyze_complex_matrix():
-    """--analyze must not crash on complex matrices (SELL section is
-    skipped — the planner is real-valued)."""
+    """--analyze must not crash on complex matrices."""
     import io as _io
 
     from smvp_toolkit_tpu.io.mtx import read_mtx
@@ -282,29 +283,30 @@ def test_analyze_complex_matrix():
     coo = read_mtx(_io.StringIO(s)).pad(8)
     text = format_analysis(analyze(coo))
     assert "TJDS diagonals" in text
-    assert "SELL plan" not in text
+    assert "shape 2x2  nnz 2" in text
 
 
-def test_sell_plan_checkpoint_roundtrip(tmp_path):
-    """SELL plans save/load bit-exactly and the reloaded plan drives the
-    kernel to the same y."""
+@pytest.mark.parametrize("fmt", ["coo", "csr", "tjds"])
+def test_matrix_checkpoint_roundtrip_drives_spmv(tmp_path, fmt):
+    """Encoded matrices save/load bit-exactly and the reloaded matrix
+    gives the same y."""
     import jax.numpy as jnp
-    import numpy as np
 
-    from smvp_toolkit_tpu.io.mtx import read_mtx
-    from smvp_toolkit_tpu.ops.sell_plan import build_sell_plan
-    from smvp_toolkit_tpu.ops.spmv_pallas import SellSpMV
-    from smvp_toolkit_tpu.utils.checkpoint import load_plan, save_plan
+    from smvp_toolkit_tpu.formats.csr import csr_encode
+    from smvp_toolkit_tpu.formats.tjds import tjds_encode
+    from smvp_toolkit_tpu.ops import spmv_coo, spmv_csr, spmv_tjds
+    from smvp_toolkit_tpu.utils.checkpoint import load_matrix, save_matrix
 
-    coo = read_mtx("/root/reference/sample-data/curtis54.mtx")
-    r, c, v = coo.to_numpy()
-    plan = build_sell_plan(r, c, v, coo.shape)
-    p = tmp_path / "plan.npz"
-    save_plan(p, plan)
-    back = load_plan(p)
-    for f in ("vals", "lane_idx", "rel_tile", "slice_of", "tile_base"):
-        np.testing.assert_array_equal(getattr(plan, f), getattr(back, f))
+    coo = _load("curtis54.mtx").pad(64)
+    enc, spmv = {
+        "coo": (coo, spmv_coo),
+        "csr": (csr_encode(coo), spmv_csr),
+        "tjds": (tjds_encode(coo), spmv_tjds),
+    }[fmt]
+    p = tmp_path / f"{fmt}.npz"
+    save_matrix(p, enc)
+    back = load_matrix(p)
     x = jnp.asarray(np.random.RandomState(0).randn(coo.shape[1]).astype(np.float32))
     np.testing.assert_array_equal(
-        np.asarray(SellSpMV(plan)(x)), np.asarray(SellSpMV(back)(x))
+        np.asarray(spmv(enc, x)), np.asarray(spmv(back, x))
     )

@@ -12,11 +12,12 @@ def test_run_all_quick(tmp_path):
     out = tmp_path / "results.jsonl"
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = "/root/repo"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    env["PYTHONPATH"] = root
     proc = subprocess.run(
         [
             sys.executable,
-            "/root/repo/benchmarks/run_all.py",
+            os.path.join(root, "benchmarks", "run_all.py"),
             "--quick",
             "--skip-synth",
             "--kernels",

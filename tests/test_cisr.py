@@ -242,18 +242,19 @@ def test_cli_cisr_benchmark_report(tmp_path):
     assert sum(float(t) for t in body.split()) == 291.0
 
 
-def test_cisr_pallas_fast_path():
-    """spmv_cisr_pallas (SELL replan of the schedule) matches the
-    schedule-faithful XLA kernel."""
+@pytest.mark.parametrize("slots", [1, 7, 16])
+def test_cisr_schedule_spmv_matches_scipy(slots):
+    """The schedule-faithful CISR SpMV equals scipy at any slot count."""
     import jax.numpy as jnp
+    import scipy.sparse as sp
 
     from smvp_toolkit_tpu.ops import spmv_cisr
-    from smvp_toolkit_tpu.ops.spmv_pallas import spmv_cisr_pallas
 
     coo = _load("curtis54.mtx")
-    cisr = cisr_encode(coo, slot_count=16)
+    cisr = cisr_encode(coo, slot_count=slots)
     rng = np.random.default_rng(9)
-    x = jnp.asarray(rng.standard_normal(coo.shape[1]).astype(np.float32))
-    y_sched = np.asarray(spmv_cisr(cisr, x))
-    y_sell = np.asarray(spmv_cisr_pallas(cisr, x))
-    np.testing.assert_allclose(y_sell, y_sched, rtol=1e-5, atol=1e-6)
+    x = rng.standard_normal(coo.shape[1]).astype(np.float32)
+    r, c, v = coo.to_numpy()
+    ref = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=coo.shape) @ x
+    y = np.asarray(spmv_cisr(cisr, jnp.asarray(x)))
+    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)

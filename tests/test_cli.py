@@ -167,12 +167,37 @@ def test_fused_timing_mode(tmp_path):
     assert "Compute times for 5 iterations:" in f.read_text()
 
 
-def test_fused_with_pallas_kernel(tmp_path):
-    # Regression: --fused must not trace the matrix through host-side
-    # Pallas planning (TracerArrayConversionError).
-    rc = main(["-c", "-n", "3", "--fused", "--kernel", "pallas",
-               "-d", str(tmp_path), PDP])
-    assert rc == 0
+@pytest.mark.parametrize("argv", [["--kernel", "pallas"],
+                                  ["--kernel=pallas"], ["--cocluster"]])
+def test_removed_sell_options_exit_2(argv, capsys):
+    """Options of the removed SELL kernel are refused with one line and
+    exit code 2, never remapped to another kernel."""
+    assert main(["-c", "-n", "1", *argv, PDP]) == 2
+    out = capsys.readouterr()
+    lines = (out.out + out.err).strip().splitlines()
+    assert len(lines) == 1 and "removed" in lines[0]
+
+
+@pytest.mark.parametrize("platform,dtype,kernel", [
+    ("gpu", "float32", "cusparse"),
+    ("gpu", "complex64", "cusparse"),
+    ("gpu", "bfloat16", "xla"),
+    ("cpu", "float32", "xla"),
+])
+def test_auto_kernel_choice(platform, dtype, kernel):
+    """--kernel auto: cuSPARSE on a GPU for the dtypes it takes, the XLA
+    kernel otherwise."""
+    import jax.numpy as jnp
+
+    from smvp_toolkit_tpu.ops import (
+        csr_spmv_for,
+        spmv_csr,
+        spmv_csr_cusparse,
+    )
+
+    label, fn = csr_spmv_for(platform, jnp.dtype(dtype))
+    assert label == kernel
+    assert fn is {"cusparse": spmv_csr_cusparse, "xla": spmv_csr}[kernel]
 
 
 def test_fused_excludes_shards():
@@ -211,8 +236,8 @@ def test_native_kernel_mode(tmp_path):
     assert sum(float(t) for t in body.split()) == 126.0
 
 
-def test_sharded_pallas_via_cli(tmp_path):
-    rc = main(["-c", "-n", "2", "--shards", "4", "--kernel", "pallas",
+def test_sharded_nnz_balance_via_cli(tmp_path):
+    rc = main(["-c", "-n", "2", "--shards", "4", "--shard-balance", "nnz",
                "-d", str(tmp_path), os.path.join(SAMPLE_DIR, "curtis54.mtx")])
     assert rc == 0
     f = list(tmp_path.glob("smvp-toolbox_report_CSR_*.txt"))[0]
@@ -251,12 +276,15 @@ def test_sharded_native_reports_actual_kernel(tmp_path):
     assert "Kernel: native" not in text
 
 
-def test_fused_bfloat16_pallas_accumulates(tmp_path):
-    """--fused with --dtype bfloat16 and the (f32-returning) Pallas
-    kernel must not crash on carry-dtype mismatch (advisor finding)."""
-    rc = main(["-c", "-n", "2", "--fused", "--kernel", "pallas",
+def test_fused_bfloat16_accumulates(tmp_path):
+    """--fused with --dtype bfloat16 keeps the loop carry in the
+    kernel's output dtype (no carry-dtype mismatch)."""
+    rc = main(["-c", "-n", "2", "--fused", "--kernel", "xla",
                "--dtype", "bfloat16", "-d", str(tmp_path), IBM32])
     assert rc == 0
+    f = list(tmp_path.glob("smvp-toolbox_report_CSR_*.txt"))[0]
+    body = re.search(r"\[\n(.*?)\n\]", f.read_text(), re.S).group(1)
+    assert sum(float(t) for t in body.split()) == 126.0
 
 
 def test_df64_kernel_mode(tmp_path):
@@ -384,44 +412,14 @@ def test_solve_pcg_ic0_on_spd_system(tmp_path):
     solve = [r for r in recs if r["alg"] == "SOLVE-PCG-IC0"]
     assert len(solve) == 1
     assert solve[0]["relative_residual"] < 1e-4
-    # The fused-launch variants converge on the same system (whole
-    # solve inside one Pallas grid — ops/pcg_fused.py).
-    for method, alg in (("pcg-ic0-fused:30", "SOLVE-PCG-IC0-FUSED"),
-                        ("chebyshev-fused:60", "SOLVE-CHEBYSHEV-FUSED")):
-        out2 = tmp_path / f"m_{alg}.jsonl"
-        rc = cli_main(
-            ["-c", "-n", "1", "-d", str(tmp_path), "--expand-symmetry",
-             "--solve", method, "--json-out", str(out2), str(mtx)]
-        )
-        assert rc == 0
-        recs = [json.loads(l) for l in out2.read_text().splitlines()]
-        solve = [r for r in recs if r["alg"] == alg]
-        assert len(solve) == 1
-        assert solve[0]["relative_residual"] < 1e-3, alg
 
 
-def test_solve_pallas_kernel(tmp_path):
-    """--solve with --kernel pallas builds the SELL operator eagerly.
-
-    Regression: the Pallas spmv plans host-side from concrete arrays;
-    passing it straight into the jitted solvers traced the matrix and
-    raised TracerArrayConversionError — exactly the path --kernel auto
-    takes on TPU.
-    """
-    import json
-
-    from smvp_toolkit_tpu.cli import main as cli_main
-
-    out = tmp_path / "m.jsonl"
-    rc = cli_main(
-        ["-c", "-n", "1", "--no-report", "--kernel", "pallas",
-         "--solve", "cg:8", "--json-out", str(out),
-         os.path.join(SAMPLE_DIR, "pdp08-pg4.mtx")]
-    )
-    assert rc == 0
-    recs = [json.loads(l) for l in out.read_text().splitlines()]
-    solve = [r for r in recs if r["alg"].startswith("SOLVE-")]
-    assert len(solve) == 1 and np.isfinite(solve[0]["relative_residual"])
+@pytest.mark.parametrize("method", ["cg-fused", "pcg-ic0-fused",
+                                    "chebyshev-fused"])
+def test_removed_fused_solve_methods_rejected(method):
+    """The one-launch solver kernels were removed; their methods are
+    usage errors now."""
+    assert main(["-c", "-n", "1", "--solve", f"{method}:8", PDP]) == 2
 
 
 def test_solve_validation():
@@ -549,23 +547,3 @@ def test_spmm_flag(tmp_path):
     # usage errors
     assert cli_main(["-t", "-n", "1", "--spmm", "4", "--no-report", f]) == 2
     assert cli_main(["-c", "-n", "1", "--spmm", "0", "--no-report", f]) == 2
-
-
-def test_cocluster_flag_routes_pallas_csr(tmp_path):
-    """--cocluster benchmarks the CSR path through the co-clustered
-    SELL operator (permuted coordinates, boundary gathers) and the
-    result stays correct."""
-    import json
-
-    from smvp_toolkit_tpu.cli import main as cli_main
-
-    out = tmp_path / "m.jsonl"
-    rc = cli_main(
-        ["-c", "-n", "2", "--no-report", "--kernel", "pallas",
-         "--cocluster", "--json-out", str(out),
-         os.path.join(SAMPLE_DIR, "curtis54.mtx")]
-    )
-    assert rc == 0
-    recs = [json.loads(l) for l in out.read_text().splitlines()]
-    row = [r for r in recs if r["alg"] == "CSR"][0]
-    assert row["kernel"] == "pallas-cocluster"

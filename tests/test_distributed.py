@@ -1,8 +1,8 @@
 """Data-parallel SpMV tests on an 8-device CPU-simulated mesh.
 
-Per SURVEY.md §4: multi-host behavior is validated via
-``--xla_force_host_platform_device_count=8`` (set in conftest) + shard_map,
-so no TPU cluster is needed in CI.
+Per SURVEY.md §4: multi-device behavior is validated via
+``--xla_force_host_platform_device_count=8`` (set in conftest) +
+shard_map, so no GPU cluster is needed in CI.
 """
 
 import os
@@ -26,9 +26,12 @@ from smvp_toolkit_tpu.parallel import (
 
 from conftest import SAMPLE_DIR, random_coo
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs multiple (virtual) devices"
-)
+
+@pytest.fixture(autouse=True)
+def _needs_devices():
+    # Decided at run time, so every xdist worker collects the same tests.
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multiple (virtual) devices")
 
 
 def _coo(seed=0, nrows=100, ncols=90, nnz=700):
@@ -112,7 +115,8 @@ def test_graft_dryrun():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py"
+        "__graft_entry__",
+        os.path.join(os.path.dirname(__file__), "..", "__graft_entry__.py"),
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -123,39 +127,35 @@ def test_graft_dryrun():
 
 
 @pytest.mark.parametrize("n_shards", [2, 8])
-def test_sharded_sell_pallas(n_shards):
-    from smvp_toolkit_tpu.parallel.sell_dist import shard_sell, spmv_sell_sharded
-
+def test_sharded_csr_nnz_balance_random(n_shards):
     coo = _coo(seed=9, nrows=260, ncols=200, nnz=1500)
     mesh = make_mesh(n_shards)
-    sh = shard_sell(coo, mesh)
+    sh = shard_csr(csr_encode(coo), mesh, balance="nnz")
     rng = np.random.RandomState(5)
     x = np.asarray(rng.randn(coo.shape[1]), dtype=np.float32)
-    y = np.asarray(spmv_sell_sharded(sh, x, mesh))
+    y = np.asarray(spmv_csr_sharded(sh, x, mesh))
     y_ref = coo.to_dense() @ x.astype(np.float64)
     np.testing.assert_allclose(y, y_ref, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_sell_sample():
-    from smvp_toolkit_tpu.parallel.sell_dist import shard_sell, spmv_sell_sharded
+def test_sharded_memplus_nnz_balance():
+    """The memplus stand-in (17,758 rows) over 4 nnz-balanced shards."""
+    import scipy.sparse as sp
 
-    coo = read_mtx(os.path.join(SAMPLE_DIR, "curtis54.mtx"), use_native=False)
+    coo = read_mtx(os.path.join(SAMPLE_DIR, "memplus.mtx")).pad(128)
     mesh = make_mesh(4)
-    sh = shard_sell(coo, mesh)
-    x = np.ones(coo.shape[1], dtype=np.float32)
-    y = np.asarray(spmv_sell_sharded(sh, x, mesh))
-    assert y.sum() == 291.0
+    sh = shard_csr(csr_encode(coo), mesh, balance="nnz")
+    x = np.random.RandomState(3).randn(coo.shape[1]).astype(np.float32)
+    y = np.asarray(spmv_csr_sharded(sh, x, mesh))
+    r, c, v = coo.to_numpy()
+    ref = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=coo.shape) @ x
+    np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_sell_bf16_and_int8():
-    """Sharded SELL path supports bf16 value mode + int8 lane indices,
-    matching the single-chip operator's results within bf16 tolerance."""
+def test_sharded_csr_bf16_values():
+    """bf16 values shard with their dtype and match a bf16 oracle."""
     import jax.numpy as jnp
-
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        shard_sell,
-        spmv_sell_sharded,
-    )
+    import ml_dtypes
 
     mesh8 = make_mesh(8)
     rng = np.random.RandomState(13)
@@ -164,18 +164,17 @@ def test_sharded_sell_bf16_and_int8():
     r = rng.randint(0, nrows, nnz).astype(np.int64)
     c = rng.randint(0, nrows, nnz).astype(np.int64)
     v = rng.randn(nnz).astype(np.float32)
-    coo = COOMatrix.from_numpy(r, c, v, shape=(nrows, nrows))
-    sh = shard_sell(coo, mesh8, value_dtype=jnp.bfloat16)
+    coo = COOMatrix.from_numpy(r, c, v, shape=(nrows, nrows),
+                               dtype=jnp.bfloat16, pad_to=64)
+    sh = shard_csr(csr_encode(coo), mesh8)
     assert sh.vals.dtype == jnp.bfloat16
-    x = jnp.asarray(rng.randn(nrows).astype(np.float32))
-    y = np.asarray(spmv_sell_sharded(sh, x, mesh8)).astype(np.float64)
-    import ml_dtypes
-
+    x = jnp.asarray(rng.randn(nrows).astype(ml_dtypes.bfloat16))
+    y = np.asarray(spmv_csr_sharded(sh, x, mesh8)).astype(np.float64)
     y_ref = np.zeros(nrows)
     np.add.at(
         y_ref, r,
         v.astype(ml_dtypes.bfloat16).astype(np.float64)
-        * np.asarray(x).astype(ml_dtypes.bfloat16)[c].astype(np.float64),
+        * np.asarray(x).astype(np.float64)[c],
     )
     scale = np.abs(y_ref).max() + 1e-30
     assert np.abs(y - y_ref).max() / scale < 2e-2
@@ -576,194 +575,114 @@ def test_pcg_ic0_over_sharded_spmv():
 
 
 @pytest.mark.parametrize("k", [3, 8, 11])
-def test_sharded_fused_spmm(k):
-    """spmm_sell_sharded: the k-wide fused launch per device matches
-    the dense reference and the per-column sharded SpMV (k=11 splits
-    into groups of 8 + 3)."""
+def test_sharded_spmm_matches_columns(k):
+    """spmm_csr_sharded matches the dense reference and k per-column
+    sharded SpMVs."""
     import jax.numpy as jnp
 
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        shard_sell,
-        spmm_sell_sharded,
-        spmv_sell_sharded,
-    )
+    from smvp_toolkit_tpu.parallel import spmm_csr_sharded
 
     coo = _coo(seed=21, nrows=260, ncols=200, nnz=1500)
     mesh = make_mesh(4)
-    sh = shard_sell(coo, mesh)
+    sh = shard_csr(csr_encode(coo), mesh)
     rng = np.random.RandomState(6)
     X = np.asarray(rng.randn(coo.shape[1], k), dtype=np.float32)
-    Y = np.asarray(spmm_sell_sharded(sh, jnp.asarray(X), mesh))
+    Y = np.asarray(spmm_csr_sharded(sh, jnp.asarray(X), mesh))
     Y_ref = coo.to_dense() @ X.astype(np.float64)
     np.testing.assert_allclose(Y, Y_ref, rtol=1e-4, atol=1e-5)
     cols = np.stack(
-        [np.asarray(spmv_sell_sharded(sh, X[:, j], mesh)) for j in range(k)],
+        [np.asarray(spmv_csr_sharded(sh, X[:, j], mesh)) for j in range(k)],
         axis=1,
     )
     np.testing.assert_allclose(Y, cols, rtol=1e-5, atol=1e-6)
 
 
-def test_sharded_fused_spmm_fallback(monkeypatch):
-    """SMVP_SELL_SPMM=0 routes the sharded SpMM through the per-column
-    path with identical results."""
+def test_sharded_spmm_2d_matches_1d():
+    """The 2x2-mesh SpMM and the 1-D row-block SpMM agree."""
     import jax.numpy as jnp
 
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        shard_sell,
-        spmm_sell_sharded,
+    from smvp_toolkit_tpu.parallel import (
+        make_mesh_2d,
+        shard_csr_2d,
+        spmm_csr_2d,
+        spmm_csr_sharded,
     )
 
     coo = _coo(seed=22, nrows=130, ncols=130, nnz=700)
-    mesh = make_mesh(2)
-    sh = shard_sell(coo, mesh)
+    csr = csr_encode(coo)
     rng = np.random.RandomState(7)
-    X = np.asarray(rng.randn(coo.shape[1], 4), dtype=np.float32)
-    Y_fused = np.asarray(spmm_sell_sharded(sh, jnp.asarray(X), mesh))
-    monkeypatch.setenv("SMVP_SELL_SPMM", "0")
-    Y_vmap = np.asarray(spmm_sell_sharded(sh, jnp.asarray(X), mesh))
-    np.testing.assert_allclose(Y_fused, Y_vmap, rtol=1e-5, atol=1e-6)
+    X = jnp.asarray(rng.randn(coo.shape[1], 4).astype(np.float32))
+    mesh = make_mesh(4)
+    mesh2 = make_mesh_2d(2, 2)
+    Y1 = np.asarray(spmm_csr_sharded(shard_csr(csr, mesh), X, mesh))
+    Y2 = np.asarray(spmm_csr_2d(shard_csr_2d(csr, mesh2), X, mesh2))
+    np.testing.assert_allclose(Y1, Y2, rtol=1e-5, atol=1e-6)
 
 
-def test_sharded_spmm_transpose():
-    """spmm_sell_sharded_t computes Aᵀ·G via per-device transpose
-    blocks + psum, matching the dense oracle."""
+def test_sharded_spmm_transpose_by_autodiff():
+    """The cotangent of the sharded SpMM is Aᵀ·G (scatter-add through
+    shard_map), matching the dense oracle."""
     import jax.numpy as jnp
 
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        shard_sell_transpose,
-        spmm_sell_sharded_t,
-    )
+    from smvp_toolkit_tpu.parallel import spmm_csr_sharded
 
     coo = _coo(seed=23, nrows=260, ncols=200, nnz=1500)
     mesh = make_mesh(4)
-    sh_t = shard_sell_transpose(coo, mesh)
+    sh = shard_csr(csr_encode(coo), mesh)
     rng = np.random.RandomState(8)
+    X = jnp.asarray(rng.randn(coo.shape[1], 5).astype(np.float32))
     G = np.asarray(rng.randn(coo.shape[0], 5), dtype=np.float32)
-    Z = np.asarray(spmm_sell_sharded_t(sh_t, jnp.asarray(G), mesh))
+    _, vjp = jax.vjp(lambda xx: spmm_csr_sharded(sh, xx, mesh), X)
+    (Z,) = vjp(jnp.asarray(G))
     Z_ref = coo.to_dense().T @ G.astype(np.float64)
-    np.testing.assert_allclose(Z, Z_ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(Z), Z_ref, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_spmm_differentiable_gcn_training():
-    """Distributed GCN training on the Pallas path: the fused sharded
-    SpMM with its transpose-psum cotangent produces the same step as
-    the XLA sharded SpMM."""
-    import jax
+@pytest.mark.parametrize("balance", ["rows", "nnz"])
+def test_sharded_spmm_grad_wrt_values(balance):
+    """d/dvals through the sharded SpMM (with_vals reshards the live
+    values) equals the single-device gradient."""
     import jax.numpy as jnp
 
-    from smvp_toolkit_tpu.formats.csr import csr_encode
-    from smvp_toolkit_tpu.models.graph import gcn_init, gcn_train_step
-    from smvp_toolkit_tpu.parallel import shard_csr, spmm_csr_sharded
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        differentiable_spmm_sharded,
-        shard_sell,
-        shard_sell_transpose,
-    )
+    from smvp_toolkit_tpu.ops import spmm_csr
+    from smvp_toolkit_tpu.parallel import spmm_csr_sharded
 
-    rng = np.random.RandomState(9)
-    n = 140
-    coo = _coo(seed=24, nrows=n, ncols=n, nnz=900)
+    coo = _coo(seed=24, nrows=140, ncols=140, nnz=900)
     csr = csr_encode(coo)
     mesh = make_mesh(4)
-    sh = shard_sell(coo, mesh)
-    sh_t = shard_sell_transpose(coo, mesh)
-    f = differentiable_spmm_sharded(sh, sh_t, mesh)
-    fused = lambda m, X: f(X)  # noqa: E731
+    sh = shard_csr(csr, mesh, balance=balance)
+    rng = np.random.RandomState(9)
+    X = jnp.asarray(rng.randn(coo.shape[1], 3).astype(np.float32))
+    G = jnp.asarray(rng.randn(coo.shape[0], 3).astype(np.float32))
 
-    s_csr = shard_csr(csr, mesh)
-    xla = lambda m, X: spmm_csr_sharded(s_csr, X, mesh)  # noqa: E731
+    def loss_dist(ev):
+        return jnp.vdot(G, spmm_csr_sharded(sh.with_vals(ev), X, mesh))
 
-    h = jnp.asarray(rng.randn(n, 4).astype(np.float32))
-    labels = jnp.asarray(rng.randint(0, 3, n))
-    mask = jnp.asarray((rng.rand(n) > 0.5))
-    params = gcn_init(jax.random.PRNGKey(2), [4, 6, 3])
-    p_fused, loss_fused = gcn_train_step(csr, params, h, labels, mask,
-                                         spmm=fused)
-    p_xla, loss_xla = gcn_train_step(csr, params, h, labels, mask,
-                                     spmm=xla)
-    np.testing.assert_allclose(float(loss_fused), float(loss_xla),
-                               rtol=1e-5)
-    for (wf, bf), (wx, bx) in zip(p_fused, p_xla):
-        np.testing.assert_allclose(np.asarray(wf), np.asarray(wx),
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(bf), np.asarray(bx),
-                                   rtol=1e-4, atol=1e-5)
+    def loss_single(ev):
+        import dataclasses
+
+        return jnp.vdot(G, spmm_csr(dataclasses.replace(csr, vals=ev), X))
+
+    g_dist = np.asarray(jax.grad(loss_dist)(csr.vals))
+    g_single = np.asarray(jax.grad(loss_single)(csr.vals))
+    np.testing.assert_allclose(g_dist, g_single, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_spmm_escape_hatches(monkeypatch):
-    """The sharded SpMM honors every kernel escape hatch symmetrically
-    (forward AND backward): compat mode, SMVP_SELL_PREFETCH=0 with
-    non-resident X, SMVP_SELL_SPMM_GROUP=0, and a tiny VMEM y budget
-    all degrade to smaller/per-column launches with identical results."""
+@pytest.mark.parametrize("alg", ["CSR", "TJDS"])
+def test_shard_and_bench_matches_spmv(alg):
+    """The CLI's sharded benchmark helper returns the single-device y."""
     import jax.numpy as jnp
 
-    import smvp_toolkit_tpu.ops.spmv_pallas as spp
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        shard_sell,
-        shard_sell_transpose,
-        spmm_sell_sharded,
-        spmm_sell_sharded_t,
-    )
+    from smvp_toolkit_tpu.ops import spmv_csr, spmv_tjds
+    from smvp_toolkit_tpu.parallel import shard_and_bench
 
-    coo = _coo(seed=25, nrows=260, ncols=200, nnz=1500)
-    mesh = make_mesh(4)
-    sh = shard_sell(coo, mesh)
-    sh_t = shard_sell_transpose(coo, mesh)
-    rng = np.random.RandomState(10)
-    X = jnp.asarray(rng.randn(coo.shape[1], 5).astype(np.float32))
-    G = jnp.asarray(rng.randn(coo.shape[0], 5).astype(np.float32))
-    Y_ref = coo.to_dense() @ np.asarray(X, np.float64)
-    Z_ref = coo.to_dense().T @ np.asarray(G, np.float64)
-
-    def check():
-        np.testing.assert_allclose(
-            np.asarray(spmm_sell_sharded(sh, X, mesh)), Y_ref,
-            rtol=1e-4, atol=1e-5,
-        )
-        np.testing.assert_allclose(
-            np.asarray(spmm_sell_sharded_t(sh_t, G, mesh)), Z_ref,
-            rtol=1e-4, atol=1e-5,
-        )
-
-    monkeypatch.setenv("SMVP_SELL_COMPAT", "1")
-    check()
-    monkeypatch.delenv("SMVP_SELL_COMPAT")
-
-    monkeypatch.setenv("SMVP_SELL_PREFETCH", "0")
-    monkeypatch.setattr(spp, "_RESIDENT_X_LIMIT", 1024)
-    check()
-    monkeypatch.undo()
-
-    monkeypatch.setenv("SMVP_SELL_SPMM_GROUP", "0")
-    check()
-    monkeypatch.delenv("SMVP_SELL_SPMM_GROUP")
-
-    monkeypatch.setattr(spp, "_RESIDENT_Y_LIMIT", 1024)
-    check()
-
-
-def test_bench_loop_sharded_matches_spmv():
-    """The grid-fused sharded benchmark runner's final y equals one
-    spmv_sell_sharded apply (same per-device relsl kernels)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.sharding import Mesh
-
-    from smvp_toolkit_tpu.io.mtx import read_mtx
-    from smvp_toolkit_tpu.parallel.sell_dist import (
-        bench_loop_sharded,
-        shard_sell,
-        spmv_sell_sharded,
-    )
-
-    coo = read_mtx("/root/reference/sample-data/memplus.mtx")
-    mesh = Mesh(np.asarray(jax.devices()[:4]), ("dp",))
-    sh = shard_sell(coo, mesh, value_dtype=jnp.bfloat16)
+    coo = read_mtx(os.path.join(SAMPLE_DIR, "memplus.mtx")).pad(128)
+    enc = csr_encode(coo) if alg == "CSR" else tjds_encode(coo)
+    spmv = spmv_csr if alg == "CSR" else spmv_tjds
     x = jnp.asarray(
         np.random.RandomState(5).randn(coo.shape[1]).astype(np.float32)
     )
-    y1 = np.asarray(spmv_sell_sharded(sh, x, mesh))
-    assert np.array_equal(
-        np.asarray(bench_loop_sharded(sh, x, mesh, 3)), y1
-    )
+    stats, y = shard_and_bench(alg, enc, x, 4, iterations=3)
+    assert stats.iterations == 3 and stats.avg_ms > 0
+    np.testing.assert_allclose(y, np.asarray(spmv(enc, x)), rtol=1e-5,
+                               atol=1e-5)

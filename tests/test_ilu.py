@@ -323,10 +323,18 @@ def test_python_fallback_matches_default_path():
     )
 
 
-def test_preconditioner_on_sell_operators_matches_xla():
-    """op_builder=sell_op_csr puts the trisolves on the Pallas path;
-    the apply must match the default XLA trisolve apply."""
-    from smvp_toolkit_tpu.ops.spmv_pallas import sell_op_csr
+def _cusparse_op(csr):
+    """op_builder for the cuSPARSE route (generic lowering on CPU)."""
+    from functools import partial
+
+    from smvp_toolkit_tpu.ops import spmv_csr_cusparse
+
+    return partial(spmv_csr_cusparse, csr)
+
+
+def test_preconditioner_on_cusparse_operators_matches_xla():
+    """op_builder puts the trisolves on another kernel (here the
+    cuSPARSE route); the apply must match the default XLA trisolve."""
 
     a = _poisson2d(6)
     csr = csr_encode(_coo_from_dense(a))
@@ -334,16 +342,16 @@ def test_preconditioner_on_sell_operators_matches_xla():
     rng = np.random.RandomState(3)
     r = rng.randn(a.shape[0]).astype(np.float32)
     m_xla = ic0_preconditioner(f, sweeps=3)
-    m_sell = ic0_preconditioner(f, sweeps=3, op_builder=sell_op_csr)
+    m_lib = ic0_preconditioner(f, sweeps=3, op_builder=_cusparse_op)
     np.testing.assert_allclose(
-        np.asarray(m_sell(r)), np.asarray(m_xla(r)), rtol=1e-5, atol=1e-6
+        np.asarray(m_lib(r)), np.asarray(m_xla(r)), rtol=1e-5, atol=1e-6
     )
 
     fu = ilu0(csr)
     m_xla_u = ilu_preconditioner(fu, sweeps=3)
-    m_sell_u = ilu_preconditioner(fu, sweeps=3, op_builder=sell_op_csr)
+    m_lib_u = ilu_preconditioner(fu, sweeps=3, op_builder=_cusparse_op)
     np.testing.assert_allclose(
-        np.asarray(m_sell_u(r)), np.asarray(m_xla_u(r)),
+        np.asarray(m_lib_u(r)), np.asarray(m_xla_u(r)),
         rtol=1e-5, atol=1e-6,
     )
 
@@ -379,9 +387,9 @@ def test_ssor_preconditioner_symmetric_and_accelerates_cg():
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-2
 
 
-def test_ssor_omega_validation_and_sell_path():
+def test_ssor_omega_validation_and_cusparse_path():
     from smvp_toolkit_tpu.models import ssor_preconditioner
-    from smvp_toolkit_tpu.ops.spmv_pallas import sell_op_csr
+
 
     a = _poisson2d(5)
     csr = csr_encode(_coo_from_dense(a))
@@ -390,11 +398,11 @@ def test_ssor_omega_validation_and_sell_path():
     rng = np.random.RandomState(6)
     r = rng.randn(a.shape[0]).astype(np.float32)
     m_xla = ssor_preconditioner(csr, omega=1.3, sweeps=3)
-    m_sell = ssor_preconditioner(
-        csr, omega=1.3, sweeps=3, op_builder=sell_op_csr
+    m_lib = ssor_preconditioner(
+        csr, omega=1.3, sweeps=3, op_builder=_cusparse_op
     )
     np.testing.assert_allclose(
-        np.asarray(m_sell(r)), np.asarray(m_xla(r)), rtol=1e-5, atol=1e-6
+        np.asarray(m_lib(r)), np.asarray(m_xla(r)), rtol=1e-5, atol=1e-6
     )
 
 

@@ -71,19 +71,21 @@ def test_lobpcg_largest():
                                rtol=1e-3)
 
 
-def test_lobpcg_fused_spmm_seam():
-    """The fused SELL SpMM drops into the spmm= seam with matching
-    Ritz values."""
-    from smvp_toolkit_tpu.ops.spmv_pallas import sell_op_csr
+def test_lobpcg_spmm_seam():
+    """Another SpMM (the TJDS one) drops into the spmm= seam with
+    matching Ritz values."""
+    from smvp_toolkit_tpu.formats.csr import csr_decode
+    from smvp_toolkit_tpu.formats.tjds import tjds_encode
+    from smvp_toolkit_tpu.ops import spmm_tjds
 
     csr, dense = _poisson(12)
     k = 3
     X0 = jnp.asarray(
         np.random.RandomState(3).randn(dense.shape[0], k).astype(np.float32)
     )
-    op = sell_op_csr(csr)
+    tj = tjds_encode(csr_decode(csr))
     theta_fused, _, _ = lobpcg(
-        csr, X0, num_iters=30, spmm=lambda m, X: op.matmat(X)
+        csr, X0, num_iters=30, spmm=lambda m, X: spmm_tjds(tj, X)
     )
     theta_xla, _, _ = lobpcg(csr, X0, num_iters=30)
     np.testing.assert_allclose(np.asarray(theta_fused),
@@ -128,7 +130,7 @@ def test_eigs_cli_flag(tmp_path):
 
 def test_lobpcg_distributed_composition():
     """Distributed eigensolving by injection alone: the A-multiplies
-    ride the sharded fused SpMM and the preconditioner is the
+    ride the row-block sharded SpMM and the preconditioner is the
     distributed AMG V-cycle — Ritz values match the single-chip run."""
     import jax
 
@@ -139,23 +141,14 @@ def test_lobpcg_distributed_composition():
     from smvp_toolkit_tpu.parallel import (
         make_mesh,
         shard_csr,
-        shard_sell,
-        spmm_sell_sharded,
+        spmm_csr_sharded,
         spmv_csr_sharded,
     )
 
     csr, dense = _poisson(16)
     n = dense.shape[0]
-    coo_r, coo_c = np.nonzero(dense)
-    from smvp_toolkit_tpu.formats.coo import COOMatrix
-
-    coo = COOMatrix.from_numpy(
-        coo_r.astype(np.int32), coo_c.astype(np.int32),
-        dense[coo_r, coo_c].astype(np.float32), shape=dense.shape,
-        pad_to=128,
-    )
     mesh = make_mesh(4)
-    sh = shard_sell(coo, mesh)
+    sh = shard_csr(csr, mesh)
     levels = amg_setup(csr, coarse_size=32)
 
     def builder(c):
@@ -169,7 +162,7 @@ def test_lobpcg_distributed_composition():
     )
     theta_d, _, _ = lobpcg(
         csr, X0, num_iters=40, m=m_dist,
-        spmm=lambda _m, Z: spmm_sell_sharded(sh, Z, mesh),
+        spmm=lambda _m, Z: spmm_csr_sharded(sh, Z, mesh),
     )
     theta_s, _, _ = lobpcg(
         csr, X0, num_iters=40, m=amg_preconditioner(csr, levels=levels)

@@ -131,17 +131,16 @@ def test_bicgstab_nonsymmetric():
     assert float(res[-1]) < 1e-2 * float(res[0])
 
 
-def test_solver_with_pallas_kernel():
-    # Solvers compose with the Pallas operator through an adapter.
-    from smvp_toolkit_tpu.ops.spmv_pallas import SellSpMV
+def test_solver_with_cusparse_route():
+    # Solvers take the library route through the spmv seam.
+    from smvp_toolkit_tpu.ops import spmv_csr_cusparse
 
     coo, a = _spd_coo(seed=6)
-    op = SellSpMV.from_coo(coo)
     import jax.numpy as jnp
 
     b = jnp.ones((a.shape[0],), jnp.float32)
     x, res = conjugate_gradient(
-        coo, b, num_iters=100, spmv=lambda m, xx: op(xx)
+        csr_encode(coo), b, num_iters=100, spmv=spmv_csr_cusparse
     )
     x_ref = np.linalg.solve(a, np.ones(a.shape[0]))
     np.testing.assert_allclose(np.asarray(x), x_ref, rtol=1e-2, atol=1e-3)
@@ -262,6 +261,25 @@ def test_gcn_training_learns():
     _, losses = train(params)
     assert float(losses[-1]) < float(losses[0]) * 0.5
     assert float(losses[-1]) < 0.4
+
+
+@pytest.mark.parametrize("restart,num_restarts", [(20, 2), (6, 3), (3, 10)])
+def test_gmres_restart_longer_than_system(restart, num_restarts):
+    """A restart longer than the Krylov space (m > n) hits the lucky
+    breakdown; GMRES must still return the solution, not a basis of
+    normalized rounding noise."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from smvp_toolkit_tpu.formats.csr import csr_encode
+    from smvp_toolkit_tpu.models import gmres
+    from smvp_toolkit_tpu.utils.synth import sample_matrix
+
+    coo = sample_matrix("pdp08-pg4")  # 6 x 6, nonsymmetric
+    a = coo.to_dense()
+    x, _ = gmres(csr_encode(coo.pad(64)), jnp.ones((6,), jnp.float32),
+                 restart=restart, num_restarts=num_restarts)
+    assert np.linalg.norm(1.0 - a @ np.asarray(x, np.float64)) < 1e-5
 
 
 def test_gmres_nonsymmetric_system():

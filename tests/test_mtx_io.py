@@ -25,6 +25,8 @@ from smvp_toolkit_tpu.io.mtx import (
 
 from conftest import SAMPLE_DIR, SAMPLES_ALL
 
+from smvp_toolkit_tpu.utils.synth import sample_triplets
+
 
 # ---------------------------------------------------------------------------
 # Banner / typecode
@@ -107,7 +109,10 @@ def test_real_values(sample_dir):
     tc, m, n, r, c, v = read_mtx_raw(os.path.join(sample_dir, "pdp08-pg4.mtx"))
     assert tc.is_real
     assert (m, n, len(r)) == (6, 6, 16)
-    assert v[0] == 5.0 and r[0] == 0 and c[0] == 0
+    r0, c0, v0, _ = sample_triplets("pdp08-pg4")
+    np.testing.assert_array_equal(r, r0)
+    np.testing.assert_array_equal(c, c0)
+    np.testing.assert_array_equal(v, v0)  # %.17g round-trips f64
 
 
 def test_symmetric_not_expanded_by_default(sample_dir):

@@ -9,6 +9,8 @@ the reference samples and adversarial structures (duplicates, empty
 rows/columns, rectangular shapes, empty matrices, complex values).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,8 @@ from smvp_toolkit_tpu.formats.tjds import (
     tjds_encode,
 )
 from smvp_toolkit_tpu.io.mtx import read_mtx
+
+from conftest import SAMPLE_DIR
 
 pytestmark = pytest.mark.skipif(
     en._lib() is None, reason="libencode.so not built"
@@ -58,7 +62,7 @@ def _assert_tjds_equal(coo):
 
 @pytest.mark.parametrize("name", SAMPLES)
 def test_samples_bit_identical(name):
-    coo = read_mtx(f"/root/reference/sample-data/{name}.mtx").pad(512)
+    coo = read_mtx(os.path.join(SAMPLE_DIR, f"{name}.mtx")).pad(512)
     _assert_csr_equal(coo)
     _assert_tjds_equal(coo)
 
@@ -117,7 +121,7 @@ def test_single_dense_column():
 
 
 def test_env_disable(monkeypatch):
-    coo = read_mtx("/root/reference/sample-data/ibm32.mtx").pad(512)
+    coo = read_mtx(os.path.join(SAMPLE_DIR, "ibm32.mtx")).pad(512)
     monkeypatch.setenv("SMVP_NATIVE_ENCODE", "0")
     assert not en.use_native(coo)
 
@@ -125,7 +129,7 @@ def test_env_disable(monkeypatch):
 def test_traced_values_fall_back_to_xla():
     import jax
 
-    coo = read_mtx("/root/reference/sample-data/ibm32.mtx").pad(512)
+    coo = read_mtx(os.path.join(SAMPLE_DIR, "ibm32.mtx")).pad(512)
 
     @jax.jit
     def encode_sum(c):

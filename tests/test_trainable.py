@@ -1,11 +1,15 @@
 """Trainable sparse operators: value-gradients through the kernels.
 
-Covers the Pallas path (SellSpMV.differentiable_edges / vjp_vals /
-slot_map — ops/spmv_pallas.py) and the XLA edge-training step
+The encoded values are ordinary array leaves of the format pytrees, so
+``jax.grad`` of any SpMV with respect to them (and to x) is JAX's own
+autodiff: a gather for d/dvals, a scatter-add for Aᵀg. Covers the XLA
+CSR/TJDS kernels, the cuSPARSE route and the XLA edge-training step
 (models/graph.gcn_train_step_edges). The reference toolkit has no
-training story at all (main-cli.c stops at y = A·x); these tests pin
-the bilinear-cotangent math against dense float64 references.
+training story at all (main-cli.c stops at y = A·x); these tests pin the
+bilinear-cotangent math against dense float64 references.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -13,15 +17,27 @@ import numpy as np
 import pytest
 
 from smvp_toolkit_tpu.formats.coo import COOMatrix
-from smvp_toolkit_tpu.ops import sell_plan as sp_mod
-from smvp_toolkit_tpu.ops.spmv_pallas import LANES, SellSpMV
+from smvp_toolkit_tpu.formats.csr import csr_encode
+from smvp_toolkit_tpu.formats.tjds import tjds_encode
+from smvp_toolkit_tpu.ops import (
+    spmm_csr,
+    spmv_csr,
+    spmv_csr_cusparse,
+    spmv_tjds,
+)
 from smvp_toolkit_tpu.utils.synth import synth_banded
+
+OPS = {
+    "csr": (csr_encode, spmv_csr),
+    "cusparse": (csr_encode, spmv_csr_cusparse),
+    "tjds": (tjds_encode, spmv_tjds),
+}
 
 
 def _dense(coo):
     r, c, v = coo.to_numpy()
     a = np.zeros(coo.shape, dtype=np.float64)
-    np.add.at(a, (r[: coo.nnz], c[: coo.nnz]), v[: coo.nnz])
+    np.add.at(a, (r, c), v)
     return a
 
 
@@ -33,129 +49,96 @@ def _rand_coo(nrows, ncols, nnz, seed, with_dups=False):
         r[: nnz // 4] = r[nnz // 4: nnz // 2]
         c[: nnz // 4] = c[nnz // 4: nnz // 2]
     v = rng.standard_normal(nnz).astype(np.float32)
-    return COOMatrix.from_numpy(r, c, v, shape=(nrows, ncols))
+    return COOMatrix.from_numpy(r, c, v, shape=(nrows, ncols), pad_to=64)
 
 
-@pytest.mark.parametrize("make", [
-    lambda: synth_banded(260, nnz_per_row=5, bandwidth=16, seed=3),
-    lambda: _rand_coo(200, 330, 900, seed=4),          # rectangular
-    lambda: _rand_coo(150, 150, 600, seed=5, with_dups=True),
-])
-def test_slot_map_scatter_matches_plan_vals(make):
-    coo = make()
-    r, c, v = coo.to_numpy()
-    op = SellSpMV.from_coo(coo)
-    slot = op.slot_map()
-    flat = np.zeros(op.plan.n_sublanes * LANES, dtype=np.float32)
-    np.add.at(flat, slot, v[: coo.nnz].astype(np.float32))
-    np.testing.assert_array_equal(
-        flat.reshape(-1, LANES), op.plan.vals
-    )
+def _entries(enc):
+    """(row, col) of every stored slot in the encoding's value order;
+    padding slots get row == nrows (they feed no output row)."""
+    if hasattr(enc, "row_ptr"):
+        ptr = np.asarray(enc.row_ptr)
+        rows = np.full(enc.nnz_padded, enc.shape[0])
+        rows[: enc.nnz] = np.repeat(np.arange(enc.shape[0]), np.diff(ptr))
+        return rows, np.asarray(enc.col_ind)
+    cols = np.asarray(enc.perm)[np.asarray(enc.offsets)]
+    return np.asarray(enc.row_ind), cols
 
 
-def test_slot_map_planner_agnostic(monkeypatch):
-    # The numpy planner must yield the same slot layout as whatever
-    # built the operator's plan (the native planner when available) —
-    # the probe-rebuild contract depends on it.
-    coo = _rand_coo(180, 220, 800, seed=6)
-    r, c, v = coo.to_numpy()
-    op_default = SellSpMV.from_coo(coo)
-    monkeypatch.setattr(sp_mod, "_PLAN_LIB", None)
-    monkeypatch.setattr(sp_mod, "_PLAN_LIB_FAILED", True)
-    op_numpy = SellSpMV.from_coo(coo)
-    np.testing.assert_array_equal(op_default.slot_map(), op_numpy.slot_map())
-    np.testing.assert_array_equal(op_default.plan.vals, op_numpy.plan.vals)
-
-
-@pytest.mark.parametrize("make", [
+_MAKES = [
     lambda: synth_banded(300, nnz_per_row=6, bandwidth=20, seed=1),
     lambda: _rand_coo(200, 330, 900, seed=7),          # rectangular
     lambda: _rand_coo(150, 150, 600, seed=8, with_dups=True),
-])
-def test_differentiable_edges_grads_match_dense(make):
+]
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("make", _MAKES, ids=["banded", "rect", "dups"])
+def test_value_and_x_grads_match_dense(make, op):
     coo = make()
-    r, c, v = coo.to_numpy()
-    nnz = coo.nnz
+    encode, spmv = OPS[op]
+    enc = encode(coo)
     a = _dense(coo)
-    op = SellSpMV.from_coo(coo)
-    f = op.differentiable_edges()
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal(coo.shape[1]).astype(np.float32))
-    vj = jnp.asarray(v[:nnz].astype(np.float32))
-
-    # Forward: identical to the operator's own plane.
-    np.testing.assert_array_equal(np.asarray(f(vj, x)), np.asarray(op(x)))
 
     def loss(vv, xx):
-        return jnp.sum(f(vv, xx) ** 2)
+        return jnp.sum(spmv(dataclasses.replace(enc, vals=vv), xx) ** 2)
 
-    gv, gx = jax.grad(loss, argnums=(0, 1))(vj, x)
+    gv, gx = jax.grad(loss, argnums=(0, 1))(enc.vals, x)
     xh = np.asarray(x, np.float64)
-    g_out = 2 * (a @ xh)
-    gv_ref = g_out[r[:nnz]] * xh[c[:nnz]]
-    gx_ref = a.T @ g_out
-    scale_v = np.abs(gv_ref).max() + 1e-9
-    scale_x = np.abs(gx_ref).max() + 1e-9
-    assert np.abs(np.asarray(gv) - gv_ref).max() / scale_v < 1e-5
-    assert np.abs(np.asarray(gx) - gx_ref).max() / scale_x < 1e-5
+    g_out = np.append(2 * (a @ xh), 0.0)  # padding rows -> 0 cotangent
+    rows, cols = _entries(enc)
+    gv_ref = g_out[rows] * xh[cols]
+    gx_ref = a.T @ g_out[:-1]
+    assert gv.shape == enc.vals.shape
+    assert np.abs(np.asarray(gv) - gv_ref).max() / (
+        np.abs(gv_ref).max() + 1e-9) < 1e-5
+    assert np.abs(np.asarray(gx) - gx_ref).max() / (
+        np.abs(gx_ref).max() + 1e-9) < 1e-5
 
 
-def test_differentiable_edges_bf16_mode():
-    coo = synth_banded(256, nnz_per_row=4, bandwidth=8, seed=9)
-    r, c, v = coo.to_numpy()
+@pytest.mark.parametrize("op", ["csr", "tjds"])
+def test_value_grads_bf16_storage(op):
+    coo = synth_banded(256, nnz_per_row=4, bandwidth=8, seed=9,
+                       dtype=jnp.bfloat16).pad(64)
+    encode, spmv = OPS[op]
+    enc = encode(coo)
     a = _dense(coo)
-    op = SellSpMV.from_coo(coo, value_dtype=jnp.bfloat16)
-    f = op.differentiable_edges()
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.standard_normal(coo.shape[1]).astype(np.float32))
-    vj = jnp.asarray(v[: coo.nnz].astype(np.float32))
-    gv = jax.grad(lambda vv: jnp.sum(f(vv, x) ** 2))(vj)
+    gv = jax.grad(
+        lambda vv: jnp.sum(spmv(dataclasses.replace(enc, vals=vv), x) ** 2)
+    )(enc.vals)
+    assert gv.dtype == jnp.bfloat16
     xh = np.asarray(x, np.float64)
-    gv_ref = (2 * (a @ xh))[r[: coo.nnz]] * xh[c[: coo.nnz]]
+    rows, cols = _entries(enc)
+    gv_ref = np.append(2 * (a @ xh), 0.0)[rows] * xh[cols]
     # bf16 storage: ~3 decimal digits on each factor of the cotangent.
     scale = np.abs(gv_ref).max() + 1e-9
-    assert np.abs(np.asarray(gv) - gv_ref).max() / scale < 0.05
+    assert np.abs(np.asarray(gv, np.float64) - gv_ref).max() / scale < 0.05
 
 
-def test_vjp_vals_dead_sublanes_zero_live_slots_true_derivative():
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_padding_slots_get_zero_value_grad(op):
+    """Padding entries feed no row: their cotangent is exactly 0, while
+    every stored entry carries the true derivative g[row]·x[col]."""
     coo = _rand_coo(190, 210, 700, seed=10)
-    r, c, v = coo.to_numpy()
-    op = SellSpMV.from_coo(coo)
+    encode, spmv = OPS[op]
+    enc = encode(coo)
+    assert enc.vals.shape[0] > coo.nnz  # precondition: padded
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.standard_normal(coo.shape[1]).astype(np.float32))
     g = jnp.asarray(rng.standard_normal(coo.shape[0]).astype(np.float32))
-    gp = np.asarray(op.vjp_vals(x, g))
-    # Sublanes with rel_tile/slice == -1 fall outside every one-hot:
-    # their whole 128-lane row of cotangents is exactly 0. (Unused
-    # lanes WITHIN a live sublane carry the true — nonzero — partial
-    # derivative of that slot; the triplet-space API never reads them.)
-    dead = (op.plan.rel_tile.reshape(-1) < 0) | (
-        op.plan.slice_of.reshape(-1) < 0
+    _, vjp = jax.vjp(
+        lambda vv: spmv(dataclasses.replace(enc, vals=vv), x), enc.vals
     )
-    if dead.any():  # padding depends on S_true mod chunk
-        assert np.all(gp[dead] == 0.0)
-    # Triplet slots carry the dense-reference cotangent.
-    a = _dense(coo)
-    gv_ref = (
-        np.asarray(g, np.float64)[r[: coo.nnz]]
-        * np.asarray(x, np.float64)[c[: coo.nnz]]
-    )
-    got = gp.reshape(-1)[op.slot_map()]
-    scale = np.abs(gv_ref).max() + 1e-9
-    assert np.abs(got - gv_ref).max() / scale < 1e-5
-
-
-def test_vjp_vals_streamed_y_rejected(monkeypatch):
-    from smvp_toolkit_tpu.ops import spmv_pallas as pp
-
-    monkeypatch.setattr(pp, "_RESIDENT_Y_LIMIT", 1)  # force streamed plan
-    coo = synth_banded(4 * LANES * 8, nnz_per_row=3, bandwidth=4, seed=11)
-    op = SellSpMV.from_coo(coo)
-    assert op.plan.y_block_slices > 0
-    x = jnp.ones((coo.shape[1],), jnp.float32)
-    g = jnp.ones((coo.shape[0],), jnp.float32)
-    with pytest.raises(ValueError, match="resident-y"):
-        op.vjp_vals(x, g)
+    (gv,) = vjp(g)
+    gv = np.asarray(gv)
+    rows, cols = _entries(enc)
+    live = rows < coo.shape[0]
+    assert np.all(gv[~live] == 0.0)
+    ref = np.asarray(g, np.float64)[rows[live]] * np.asarray(x)[cols[live]]
+    assert np.abs(gv[live] - ref).max() / (np.abs(ref).max() + 1e-9) < 1e-5
 
 
 def test_gcn_train_step_edges_learns():
@@ -191,31 +174,34 @@ def test_gcn_train_step_edges_learns():
         )
 
 
-def test_differentiable_edges_vmap_spmm():
-    # Multi-RHS training: vmap over columns gives Y = A(v)·X with the
-    # v-cotangent summed over the batch by the vmap transpose — no new
-    # kernels needed.
+@pytest.mark.parametrize("batched", ["vmap", "spmm"])
+def test_multi_rhs_value_grads(batched):
+    # Multi-RHS training: Y = A(v)·X either as vmap over columns of the
+    # SpMV or as the k-wide SpMM; the v-cotangent sums over the batch.
     coo = synth_banded(300, nnz_per_row=6, bandwidth=20, seed=1)
-    r, c, v = coo.to_numpy()
-    op = SellSpMV.from_coo(coo)
-    f = op.differentiable_edges()
+    csr = csr_encode(coo)
     rng = np.random.default_rng(0)
     x_blk = jnp.asarray(
         rng.standard_normal((coo.shape[1], 4)).astype(np.float32)
     )
-    vj = jnp.asarray(v[: coo.nnz].astype(np.float32))
-    fm = jax.vmap(f, in_axes=(None, 1), out_axes=1)
+    if batched == "vmap":
+        fm = jax.vmap(lambda m, xx: spmv_csr(m, xx), in_axes=(None, 1),
+                      out_axes=1)
+    else:
+        fm = spmm_csr
     gv, gx = jax.grad(
-        lambda vv, xx: jnp.sum(fm(vv, xx) ** 2), argnums=(0, 1)
-    )(vj, x_blk)
+        lambda vv, xx: jnp.sum(
+            fm(dataclasses.replace(csr, vals=vv), xx) ** 2),
+        argnums=(0, 1),
+    )(csr.vals, x_blk)
     a = _dense(coo)
     xh = np.asarray(x_blk, np.float64)
     g_out = 2 * (a @ xh)
-    gv_ref = (
-        g_out[r[: coo.nnz], :] * xh[c[: coo.nnz], :]
-    ).sum(axis=1)
+    rows, cols = _entries(csr)
+    live = rows < coo.shape[0]
+    gv_ref = (g_out[rows[live], :] * xh[cols[live], :]).sum(axis=1)
     gx_ref = a.T @ g_out
-    assert np.abs(np.asarray(gv) - gv_ref).max() / (
+    assert np.abs(np.asarray(gv)[live] - gv_ref).max() / (
         np.abs(gv_ref).max() + 1e-9
     ) < 1e-5
     assert np.abs(np.asarray(gx) - gx_ref).max() / (
@@ -223,26 +209,24 @@ def test_differentiable_edges_vmap_spmm():
     ) < 1e-5
 
 
-def test_differentiable_edges_optax():
+def test_value_vector_trains_with_optax():
     # The edge-value vector is a first-class optax parameter.
     import optax
 
     coo = synth_banded(256, nnz_per_row=4, bandwidth=8, seed=2)
-    r, c, v = coo.to_numpy()
-    op = SellSpMV.from_coo(coo)
-    f = op.differentiable_edges()
+    csr = csr_encode(coo)
     x = jnp.asarray(
         np.random.default_rng(1).standard_normal(coo.shape[1]).astype(
             np.float32
         )
     )
-    vj = jnp.asarray(v[: coo.nnz].astype(np.float32))
 
     def loss(vv):
-        return jnp.sum((f(vv, x) - 1.0) ** 2)
+        return jnp.sum(
+            (spmv_csr(dataclasses.replace(csr, vals=vv), x) - 1.0) ** 2)
 
     tx = optax.adam(1e-2)
-    state = tx.init(vj)
+    state = tx.init(csr.vals)
 
     @jax.jit
     def step(vv, st):
@@ -250,25 +234,8 @@ def test_differentiable_edges_optax():
         upd, st = tx.update(g, st, vv)
         return optax.apply_updates(vv, upd), st, val
 
-    l0 = float(loss(vj))
-    vv = vj
+    l0 = float(loss(csr.vals))
+    vv = csr.vals
     for _ in range(20):
         vv, state, _ = step(vv, state)
     assert float(loss(vv)) < l0
-
-
-def test_differentiable_edges_streamed_plan_rejected(monkeypatch):
-    # A streamed-y (v7) plan's sublane order is block-major; slot_map's
-    # flat probe plan would silently mis-scatter values (review finding,
-    # round 3). The trainable API must refuse streamed operators.
-    import smvp_toolkit_tpu.ops.spmv_pallas as sp
-
-    monkeypatch.setattr(sp, "_RESIDENT_Y_LIMIT", 1024)
-    monkeypatch.setattr(sp, "_STREAM_Y_BLOCK_ROWS", 2048)
-    coo = synth_banded(5000, nnz_per_row=4, bandwidth=16, seed=3)
-    op = sp.SellSpMV.from_coo(coo, interpret=True)
-    assert op.plan.y_block_slices  # precondition: plan really streamed
-    with pytest.raises(ValueError, match="resident-y"):
-        op.differentiable_edges()
-    with pytest.raises(ValueError, match="resident-y"):
-        op.slot_map()
